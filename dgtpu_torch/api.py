@@ -1,0 +1,356 @@
+"""DGFEM orchestrator — the port of ``dgtpu/api.py`` for the mixed-precision
+Poisson multigrid route.
+
+Builds settings + manufactured solution, reads the grid, constructs the
+multigrid hierarchy (penalty / polynomial / geometric coarsening) with its
+transfers, assembles every level in float64 on the chosen device, solves
+with float32 SoA cycles inside float64 defect correction (optionally seeded
+by an FMG pass), and post-processes: residual norms, modal->nodal values,
+L1/L2 MMS errors, VTK export and ``summary.txt`` in the reference's schema.
+
+Every branch of dgtpu's orchestrator that this slice does not port raises
+NotImplementedError naming its ROADMAP item; nothing falls back to another
+route.
+"""
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from dgtpu_torch.geometry import Geometry
+from dgtpu_torch.io.vtk import elements_to_vtk, grid_to_vtk, nodal_lattice
+from dgtpu_torch.level import CoarseGridLevel, GridLevel
+from dgtpu_torch.mms import ManufacturedSolution
+from dgtpu_torch.models.poisson import assemble_poisson
+from dgtpu_torch.ops.soa import SoAVCycle
+from dgtpu_torch.ops.transfer import make_transfer
+from dgtpu_torch.settings import Settings, load_params
+from dgtpu_torch.solvers.refinement import make_refined_solver
+from dgtpu_torch.utils.logger import Logger
+from dgtpu_torch.utils.norms import lp_norm
+from dgtpu_torch.utils.timer import Timer, synchronize
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# results/ and postprocessing/ are written below this directory
+OUTPUT_ROOT = REPO_ROOT
+
+_CHECK_FLAGS = ("check_condition_number", "check_eigenvalues",
+                "check_consistency", "check_characteristics",
+                "check_orthonormality", "check_iteration_matrix")
+
+
+def _unsupported(settings, method):
+    """The first configuration choice this slice does not port, as
+    (what, ROADMAP item), or None."""
+    s = settings
+    mg = s.solver.multigrid
+    perf = getattr(s, "performance", None)
+    if s.problem.type != "Poisson":
+        return f"problem type {s.problem.type}", "Queue 1 item 9 (Stokes)"
+    if method != "multigrid":
+        return f"solver method {method!r}", \
+            "Queue 1 items 8 and 11 (the other solver routes)"
+    if str(getattr(perf, "precision", "full")) != "mixed":
+        return "performance.precision: full", \
+            "Queue 1 item 8 (full-precision generic multigrid)"
+    if int(getattr(perf, "n_shards", 1) or 1) > 1:
+        return "performance.n_shards > 1", "Queue 1 item 12 (multi-GPU)"
+    if mg.geometric_coarsening.enabled and mg.geometric_coarsening.use_FVM:
+        return "an FVM coarse level", "Queue 1 item 11 (models/fvm.py)"
+    if s.caching.enabled:
+        return "caching.enabled", "Queue 1 item 5 (utils/caching.py)"
+    if getattr(s.problem, "orthonormal_on_physical_element", False):
+        return "problem.orthonormal_on_physical_element", \
+            "Queue 1 item 9 (ops/orthonormal.py)"
+    for flag in _CHECK_FLAGS:
+        if getattr(s.problem, flag, False):
+            return f"problem.{flag}", "Queue 1 item 11 (diagnostics.py)"
+    if getattr(s.visualization, "plot_sparsity_pattern", False) \
+            or s.visualization.automatically_open_paraview:
+        return "visualization plots / ParaView", \
+            "Queue 1 item 13 (visualization.py)"
+    return None
+
+
+class DGFEM:
+    """``DGFEM(device="cuda", **kwargs)`` — dgtpu's constructor keywords plus
+    an explicit ``device``.  A CUDA device must be available: nothing falls
+    back to the CPU."""
+
+    def __init__(self, device="cuda", **kwargs):
+        if kwargs.get("settings"):
+            self.settings = kwargs["settings"]
+        else:
+            self.settings = Settings(load_params(kwargs.get("paramfile")))
+        self.settings.update_settings(kwargs)
+
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available (pass device='cpu' for a CPU run)")
+
+        self.logger = Logger(__name__, self.settings).logger
+
+        for key, arg in kwargs.items():
+            if "solve_" in key and arg:
+                self.settings.solver.method = key.removeprefix("solve_")
+        if not hasattr(self.settings.solver, "method"):
+            self.settings.solver.method = "direct"
+        missing = _unsupported(self.settings, self.settings.solver.method)
+        if missing:
+            raise NotImplementedError(
+                f"{missing[0]} is not ported to dgtpu_torch yet (ROADMAP "
+                f"{missing[1]})")
+
+        folder = self.settings.grid.folder
+        grid_filepath = (folder if os.path.isabs(folder)
+                         else os.path.join(REPO_ROOT, folder))
+        grid_filepath = os.path.join(grid_filepath, self.settings.grid.filename)
+        self.geometry = Geometry(grid_filepath, self.settings)
+
+        self.vars = ["u"]
+        self.P_sol = {"u": self.settings.solution.u.polynomial_degree}
+        lam = getattr(self.settings.problem.exact_solution, "lam", None)
+        self.mms = ManufacturedSolution(
+            {"u": self.settings.problem.exact_solution.u}, "Poisson",
+            self.settings.problem.kinematic_viscosity, lam_expr=lam)
+        self.settings._validate_settings(self.settings)
+
+        # results folder structure (dgfem.py:64-101)
+        grid_filename = os.path.splitext(self.settings.grid.filename)[0]
+        results_folder = f"exact_sol_{self.settings.problem.exact_solution.tag}"
+        mul = self.settings.problem.SIP_penalty_parameter_multiplier
+        results_folder += f"_sigmamul{mul}".replace(".", "_")
+        self.results_dir = os.path.join(OUTPUT_ROOT, "results", "Poisson",
+                                        f"grid_{grid_filename}", results_folder)
+        os.makedirs(self.results_dir, exist_ok=True)
+        self.solution_visualization_filepath = os.path.join(
+            self.results_dir, f"solution_Pu{self.P_sol['u']}")
+        self.solution_summary_filepath = os.path.join(self.results_dir, "summary.txt")
+
+        self.residuals = []
+        self.initialize()
+
+        if self.settings.visualization.export:
+            grid_to_vtk(os.path.join(self.results_dir, "grid"),
+                        self.geometry.x, self.geometry.y)
+        self._write_summary_header(grid_filename)
+
+    # ------------------------------------------------------------------ setup
+
+    def initialize(self):
+        s = self.settings
+        self.sigma = (s.problem.SIP_penalty_parameter if s.problem.SIP_penalty_parameter
+                      else (self.P_sol["u"] + 1) ** 2
+                      * s.problem.SIP_penalty_parameter_multiplier)
+        self.levels = []
+        self.transfers = []
+        self.transfer_types = []
+        self._build_multigrid_hierarchy()
+        for idx, lvl in enumerate(self.levels):
+            self.logger.debug(
+                f"grid number {idx+1}: P_grid={lvl.P_grid}, P_sol={lvl.P_sol}, "
+                f"sigma={lvl.sigma}, Ni={lvl.Ni}, Nj={lvl.Nj}")
+        self._assemble_all()
+
+    def _level(self, P_sol, sigma):
+        return GridLevel(self.geometry, self.settings, self.vars, P_sol, sigma,
+                         device=self.device)
+
+    def _build_multigrid_hierarchy(self):
+        """Mirror of dgfem.assemble_multigrid_operators (dgfem.py:269-376).
+
+        Levels are ordered coarsest -> finest; transfers[k] sits between
+        levels[k] and levels[k+1].
+        """
+        s = self.settings
+        mg = s.solver.multigrid
+        dev = self.device
+
+        if mg.penalty_parameter_coarsening.enabled:
+            sigma_min = (self.P_sol["u"] + 1) ** 2
+            multipliers = sorted(map(int, str(
+                mg.penalty_parameter_coarsening.multipliers).split(",")))
+            sigmas = [sigma_min * m for m in multipliers]
+            if any(m < 2 for m in multipliers):
+                self.logger.warning(
+                    "You are trying to use a penalty parameter multiplier lower "
+                    "than 2, expect unstable results on curved grids")
+            self.levels[0:0] = [self._level(self.P_sol, sig) for sig in sigmas]
+            self.transfers[0:0] = [make_transfer("penalty", p_fine=self.P_sol["u"],
+                                                 device=dev)
+                                   for _ in range(len(sigmas) - 1)]
+            self.transfer_types[0:0] = ["penalty_parameter"] * (len(sigmas) - 1)
+
+        if mg.polynomial_coarsening.enabled:
+            p_levels = sorted(map(int, str(mg.polynomial_coarsening.levels.u).split(",")))
+            if mg.penalty_parameter_coarsening.enabled:
+                p_levels_grids = p_levels[:-1]
+                s.problem.SIP_penalty_parameter_multiplier = multipliers[0]
+            else:
+                p_levels_grids = p_levels
+            self.levels[0:0] = [
+                self._level({"u": p}, (p + 1) ** 2
+                            * s.problem.SIP_penalty_parameter_multiplier)
+                for p in p_levels_grids]
+            p_transfers = [make_transfer("polynomial", p_fine=p_levels[i + 1],
+                                         p_coarse=p_levels[i], device=dev)
+                           for i in range(len(p_levels) - 1)]
+            self.transfers[0:0] = p_transfers
+            self.transfer_types[0:0] = ["polynomial"] * len(p_transfers)
+
+        if mg.geometric_coarsening.enabled:
+            if not self.levels:
+                self.levels.append(self._level(self.P_sol, self.sigma))
+            cfs = mg.geometric_coarsening.coarsening_factors
+            cfs = (sorted(map(int, str(cfs).split(",")), reverse=True)
+                   if not isinstance(cfs, int) else [cfs])
+            # every geometric transfer is a 2x2 agglomeration between
+            # consecutive levels: validate the chain
+            chain = cfs + [1]
+            if any(a != 2 * b for a, b in zip(chain, chain[1:])):
+                raise ValueError(
+                    "geometric coarsening factors must form a contiguous "
+                    f"2x chain down to the fine grid (e.g. '8,4,2'); got {cfs}")
+            base = self.levels[0]
+            coarse = [CoarseGridLevel(self.geometry, base, s, self.vars, cf,
+                                      device=dev) for cf in cfs]
+            self.levels[0:0] = coarse
+            geo_transfers = [make_transfer(
+                "geometric", p_fine=self.levels[k].P_sol["u"], cf=2, device=dev)
+                for k in range(len(coarse))]
+            self.transfers[0:0] = geo_transfers
+            self.transfer_types[0:0] = ["geometric"] * len(geo_transfers)
+
+        if not self.levels:
+            raise ValueError("multigrid requires at least one coarsening type enabled")
+
+    def _assemble_all(self):
+        finest = self.levels[-1]
+        for lvl in self.levels:
+            lvl.op, lvl.rhs, lvl.inv_mass = assemble_poisson(
+                lvl, self.mms if lvl is finest else None)
+
+    # ------------------------------------------------------------------ solve
+
+    def solve(self):
+        finest = self.levels[-1]
+        self.logger.debug("Solving with multigrid method ...")
+        with Timer() as t:
+            u_modal, res, n = self._solve_multigrid_mixed(finest)
+            synchronize(u_modal)
+        self.solve_seconds = t.elapsed()
+        self.solve_residual, self.outer_rounds = res, n
+        self.logger.info(f"multigrid: {int(n)} outer rounds, final normalized "
+                         f"residual {float(res):.6e}")
+        self._save_residual_history()
+        self.logger.info(f"Solving with multigrid method took {t.elapsed():.4g} seconds")
+        return self._postprocess(u_modal)
+
+    def _solve_multigrid_mixed(self, finest):
+        """Mixed-precision multigrid: float32 SoA cycles (the CUDA kernels on
+        a GPU) inside float64 defect correction, optionally seeded by the
+        FMG guess (``solver.multigrid.full_multigrid``)."""
+        s = self.settings
+        mg = s.solver.multigrid
+        fmg_on = bool(getattr(mg, "full_multigrid", False))
+        # the route targets at least the 1e-10 parity residual
+        tol = min(float(mg.tolerance), 1e-10)
+        dims = [(l.Nj, l.Ni) for l in self.levels]
+        if any(ni % 2 for _, ni in dims):
+            raise NotImplementedError(
+                "an odd Ni on some level: dgtpu runs the rolled-layout cycle "
+                "there, which is not ported yet (ROADMAP Queue 1 item 8)")
+        cycle = SoAVCycle([l.op for l in self.levels], self.transfers,
+                          self.transfer_types, s, dims, dtype=torch.float32,
+                          device=self.device)
+        rhs = finest.rhs
+        u0 = torch.zeros_like(rhs)
+        kind = "SoA"
+        if fmg_on:
+            # the FMG pass's finest-level cycle is the same cycle the
+            # refinement runs
+            u0 = cycle.build_fmg(finest_cycle=cycle)(rhs).to(rhs.dtype)
+            kind += " + FMG guess"
+        refined = make_refined_solver(finest.op, cycle, n_inner=6, tol=tol,
+                                      normalize="rhs" if fmg_on else "u0")
+        u, res, n, hist = refined(rhs, u0)
+        self.residuals = [r for r in hist if math.isfinite(r)]
+        self.logger.info(
+            f"mixed-precision multigrid ({kind} inner cycle): {n} outer "
+            f"refinement rounds x 6 f32 cycles, residual {res:.3e}")
+        if res >= tol:
+            self.logger.warning(
+                f"mixed-precision refinement stopped at {res:.3e} "
+                f"(tolerance {tol:g})")
+        return u, res, n
+
+    def _save_residual_history(self):
+        """Residual history as .npy (the reference pickles it, solver.py:128-138)."""
+        lvl = self.levels[-1]
+        path = os.path.join(OUTPUT_ROOT, "postprocessing", "multigrid")
+        os.makedirs(path, exist_ok=True)
+        name = (f"residuals_{self.settings.problem.type}_{lvl.Ni}X{lvl.Nj}"
+                f"_nPoly{lvl.P_grid}_" + "_".join(sorted(set(self.transfer_types))))
+        name += "_circle" if self.settings.grid.circular else "_rectangle"
+        np.save(os.path.join(path, name + ".npy"), np.asarray(self.residuals))
+
+    # ---------------------------------------------------------------- post
+
+    def _postprocess(self, u_modal):
+        s = self.settings
+        finest = self.levels[-1]
+
+        residual_0 = float(lp_norm(finest.rhs, 2))
+        self.residual = float(lp_norm(finest.rhs - finest.op.matvec(u_modal), 2))
+        self.logger.info(f"L2 norm of the residual (modal): {self.residual:.6e} "
+                         f"(not normalized)")
+        self.logger.info(f"L2 norm of the residual (modal): "
+                         f"{self.residual / residual_0:.6e} (normalized)")
+
+        # modal -> nodal (dgfem.py:201-209), batched
+        u_el = u_modal.reshape(finest.N, finest.N_DOF_sol_tot)
+        Vg = torch.as_tensor(finest.quad.V_sol_grid["u"], device=self.device)
+        u_nodal = u_el @ Vg.T
+        X = torch.as_tensor(finest.X, device=self.device)
+        Y = torch.as_tensor(finest.Y, device=self.device)
+        u_exact = self.mms.u(X, Y)
+        self.L1_error_u = float(lp_norm(u_nodal - u_exact, 1))
+        self.L2_error_u = float(lp_norm(u_nodal - u_exact, 2))
+        self.logger.info(f"The norms of the error (nodal) are: "
+                         f"L1={self.L1_error_u:.6e}, L2={self.L2_error_u:.6e}")
+
+        self.u_nodal = u_nodal.cpu().numpy()
+        if s.visualization.export:
+            nn = nodal_lattice(finest, self.u_nodal)
+            ne = nodal_lattice(finest, u_exact.cpu().numpy())
+            elements_to_vtk(self.solution_visualization_filepath,
+                            self.geometry.x, self.geometry.y,
+                            {"phi": nn, "phi_exact": ne,
+                             "abs_error_phi": np.abs(nn - ne)})
+        self._write_summary_results()
+        return u_modal
+
+    def _write_summary_header(self, grid_filename):
+        s = self.settings
+        with open(self.solution_summary_filepath, "w") as f:
+            f.write("############################################\n")
+            f.write("###          SIMULATION SUMMARY          ###\n")
+            f.write("############################################\n\n")
+            f.write(f"### grid={grid_filename}\n")
+            f.write(f"### exact solution={ {'u': s.problem.exact_solution.u} }\n")
+            f.write(f"### Ni={self.geometry.Ni}, Nj={self.geometry.Nj}\n")
+            f.write(f"### P grid={s.grid.polynomial_degree}\n")
+            f.write(f"### P sol={self.P_sol}\n")
+            f.write(f"### epsilon multiplier={s.problem.SIP_penalty_parameter_multiplier}\n")
+            f.write("###\n")
+            f.write("### solver=multigrid\n\n")
+            f.write("############################################\n\n")
+
+    def _write_summary_results(self):
+        with open(self.solution_summary_filepath, "a") as f:
+            f.write(f"Residual={self.residual}\n")
+            f.write(f"L1 error={self.L1_error_u}\n")
+            f.write(f"L2 error={self.L2_error_u}\n")

@@ -1,0 +1,136 @@
+"""Batched DG face kernels for the Poisson SIP terms (port of
+``dgtpu/models/faces.py``).
+
+The reference's three face branches (interior / left-boundary /
+right-boundary, ``dgfem/face.py:115-372``) collapse into one batched
+formula per term with per-face scalars:
+
+    w_L, w_R : trial-side averaging weights (1/2, 1/2 interior; 1/0 one-sided)
+    p_L, p_R : presence indicators (penalty terms use full sigma either way)
+    J        : face Jacobian — the L element's 'max' trace when L exists,
+               else the R element's 'min' trace (face.py:13-35)
+    h_F      : mean sqrt(element area) of the present sides
+
+Each kernel returns ``(LL, LR, RL, RR)`` stacks of shape (F, B_test,
+B_trial).  The Stokes face terms (continuity, pressure, velocity penalty)
+are ROADMAP Queue 1 item 9.
+"""
+
+import torch
+
+
+class FaceData:
+    """Gathered per-face geometry for one direction and one quadrature var.
+
+    ``trace``: Vandermondes of a basis on the L ('max') / R ('min') side;
+    ``grad_normal``: normal-derivative traces of that basis built from each
+    side's own metric terms; normals point from L into R (element.py:96-102).
+    """
+
+    def __init__(self, level, topo, var_quad, gt=None):
+        gt = gt if gt is not None else level.gt
+        dev = level.device
+        g = gt[var_quad]
+        sL, sR = topo.side_L, topo.side_R
+        eL = torch.as_tensor(topo.eL, device=dev)
+        eR = torch.as_tensor(topo.eR, device=dev)
+
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+        self.topo = topo
+        self.w_q = t(level.quad.w_int[var_quad])
+        has_L = torch.as_tensor(topo.has_L, device=dev)[:, None]
+        self.J = torch.where(has_L, g[sL]["Jf"][eL], g[sR]["Jf"][eR])
+        self.h_F = level.h_F(topo)
+        self.w_L, self.w_R = t(topo.w_L), t(topo.w_R)
+        self.p_L, self.p_R = t(topo.p_L), t(topo.p_R)
+        # per-side metric terms at the trace quadrature points
+        keys = ("rx", "sx", "ry", "sy", "nx", "ny")
+        self.mt_L = {k: g[sL][k][eL] for k in keys}
+        self.mt_R = {k: g[sR][k][eR] for k in keys}
+        # boundary-side physical coordinates (for Dirichlet data)
+        self.x_L, self.y_L = g[sL]["x"][eL], g[sL]["y"][eL]
+        self.x_R, self.y_R = g[sR]["x"][eR], g[sR]["y"][eR]
+        self._level = level
+        self._var_quad = var_quad
+        self.wJ = self.w_q[None, :] * self.J       # (F, nq)
+
+    def _per_face(self, table):
+        """Shared (nq, B) table -> (F, nq, B) broadcast view."""
+        table = torch.as_tensor(table, dtype=torch.float64,
+                                device=self._level.device)
+        return table.expand(self.topo.n_faces, *table.shape)
+
+    def trace(self, var_basis):
+        """(V_L, V_R) trace Vandermondes of a basis, each (F, nq, B)."""
+        q = self._level.quad
+        sL, sR = self.topo.side_L, self.topo.side_R
+        return (self._per_face(q.V_sol_face[sL][var_basis][self._var_quad]),
+                self._per_face(q.V_sol_face[sR][var_basis][self._var_quad]))
+
+    def grad_normal(self, var_basis):
+        """(Gn_L, Gn_R): n . grad(phi) traces, each (F, nq, B)."""
+        q = self._level.quad
+        sL, sR = self.topo.side_L, self.topo.side_R
+        out = []
+        for side_key, mt in ((sL, self.mt_L), (sR, self.mt_R)):
+            Vr = self._per_face(q.Vr_sol_face[side_key][var_basis][self._var_quad])
+            Vs = self._per_face(q.Vs_sol_face[side_key][var_basis][self._var_quad])
+            gx = Vr * mt["rx"][:, :, None] + Vs * mt["sx"][:, :, None]
+            gy = Vr * mt["ry"][:, :, None] + Vs * mt["sy"][:, :, None]
+            out.append(gx * mt["nx"][:, :, None] + gy * mt["ny"][:, :, None])
+        return out[0], out[1]
+
+
+def sip_terms(fd, nu, sigma, var="u"):
+    """Sum of the SIP consistency-flux, penalty, and symmetrizing face terms.
+
+    Reference: face.py:115-280 (compute_momentum_laplace_SIP_*).
+    """
+    V_L, V_R = fd.trace(var)
+    Gn_L, Gn_R = fd.grad_normal(var)
+    wJ = fd.wJ
+
+    def contract(A, Bm, coef):
+        # coef_f * sum_q wJ[f,q] A[f,q,i] Bm[f,q,k] -> (F, k, i)
+        return torch.einsum("fq,fqi,fqk->fki", coef[:, None] * wJ, A, Bm)
+
+    # consistency flux: res_XY = t_X * nu * w_Y * <Gn_Y, V_X>,  t_L=-1, t_R=+1
+    LL = contract(Gn_L, V_L, -nu * fd.w_L)
+    LR = contract(Gn_R, V_L, -nu * fd.w_R)
+    RL = contract(Gn_L, V_R, +nu * fd.w_L)
+    RR = contract(Gn_R, V_R, +nu * fd.w_R)
+
+    # penalty: res_XY = s_X * c_Y * sigma*nu/h * p_Y * <V_Y, V_X>
+    pen = sigma * nu / fd.h_F
+    LL = LL + contract(V_L, V_L, +pen * fd.p_L)
+    LR = LR + contract(V_R, V_L, -pen * fd.p_R)
+    RL = RL + contract(V_L, V_R, -pen * fd.p_L)
+    RR = RR + contract(V_R, V_R, +pen * fd.p_R)
+
+    # symmetrizing: res_XY = -(sign_Y) * nu * w_Y * <V_Y[.,i] Gn_X[.,k]>
+    LL = LL + contract(V_L, Gn_L, -nu * fd.w_L)
+    LR = LR + contract(V_R, Gn_L, +nu * fd.w_R)
+    RL = RL + contract(V_L, Gn_R, -nu * fd.w_L)
+    RR = RR + contract(V_R, Gn_R, +nu * fd.w_R)
+
+    return LL, LR, RL, RR
+
+
+def sip_dirichlet_rhs(fd, nu, sigma, g_min, g_max, var="u"):
+    """Dirichlet boundary contributions of the SIP penalty + symmetrizing terms.
+
+    ``g_min[f, q]``: boundary data at min-side boundary faces (element R
+    present), ``g_max`` at max-side ones.  Returns (rhs_min, rhs_max) of shape
+    (F, B), to be scatter-added to eR / eL on boundary faces only.
+    Reference: face.py:180-254 (note the sign flip between min and max sides).
+    """
+    V_L, V_R = fd.trace(var)
+    Gn_L, Gn_R = fd.grad_normal(var)
+    pen = sigma * nu / fd.h_F
+    rhs_min = torch.einsum("f,fqi,fq,fq->fi", pen, V_R, g_min, fd.wJ)
+    rhs_min = rhs_min + nu * torch.einsum("fqi,fq,fq->fi", Gn_R, g_min, fd.wJ)
+    rhs_max = torch.einsum("f,fqi,fq,fq->fi", pen, V_L, g_max, fd.wJ)
+    rhs_max = rhs_max - nu * torch.einsum("fqi,fq,fq->fi", Gn_L, g_max, fd.wJ)
+    return rhs_min, rhs_max

@@ -42,6 +42,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavy sharded/streamed/interpret tests — excluded from the "
         "fast lane (python -m pytest tests/ -q -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels have no CPU "
+        "mode); skipped where torch.cuda.is_available() is False")
 
 
 @pytest.fixture(scope="session", autouse=True)

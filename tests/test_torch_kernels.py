@@ -1,0 +1,169 @@
+"""The port's CUDA kernels (dgtpu_torch/csrc/soa_kernels.cu) against their
+plain torch versions, and the port's import hygiene.
+
+The kernels have no CPU mode: the tests marked ``cuda`` skip without a
+card and run on one with ``python -m pytest tests/test_torch_kernels.py``.
+Bar on the card: float32 kernel vs float32 plain version < 1e-5 relative to
+max|plain| (summation order and FMA contraction differ, so equality is not
+expected).
+"""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dgtpu_torch.ops import _kernels, soa
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REL_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, dgtpu_torch, dgtpu_torch.api, dgtpu_torch.__main__, "
+            "dgtpu_torch.convert, dgtpu_torch.ops.soa; "
+            "assert 'jax' not in sys.modules and 'dgtpu' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   env={**os.environ, "PYTHONPATH": REPO}, timeout=120)
+
+
+def test_sources_import_no_jax():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "dgtpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in ("jax", "jaxlib", "dgtpu"), (path, m)
+
+
+def test_entry_points_match_bindings():
+    """Every ctypes signature names an extern "C" function of the source
+    with the same number of arguments."""
+    src = open(_kernels.SOURCE).read()
+    for name, argtypes in _kernels._SIGNATURES.items():
+        m = re.search(rf"\bint {name}\(([^)]*)\)", src)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
+    assert "soa_error_string(int code)" in src
+
+
+def test_launchers_refuse_cpu_tensors():
+    x = torch.zeros(2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.small_gemm(torch.zeros(4, 4), x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.residual(torch.zeros(2, 5, 4, 4, 8), x, x, 2, False)
+
+
+def _rand(rng, *shape, device="cpu"):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                           device=device)
+
+
+def _level(rng, B, nj, ni, periodic, device):
+    nh = ni // 2
+    C = nj * nh
+    lanes_j, lanes_ip = np.repeat(np.arange(nj), nh), np.tile(np.arange(nh), nj)
+    masks = np.stack([lanes_j % 2 == 0, lanes_ip == 0, lanes_ip == nh - 1])
+    return soa.SoALevel(_rand(rng, 2, 5, B, B, C, device=device),
+                        _rand(rng, 2, B, B, C, device=device),
+                        torch.as_tensor(masks[:, None, :], dtype=torch.float32,
+                                        device=device), nj, ni, periodic)
+
+
+def _close(kern, args):
+    got = kern(*args)
+    ref = soa.PLAIN[kern](*args)
+    torch.cuda.synchronize()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+LEVEL_SHAPES = [(4, 4, 4), (16, 8, 8), (36, 8, 8), (9, 16, 32), (4, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("B, nj, ni", LEVEL_SHAPES)
+def test_half_sweep_and_residual_kernels(cuda, B, nj, ni, periodic):
+    rng = np.random.default_rng(0)
+    lv = _level(rng, B, nj, ni, periodic, cuda)
+    rhs, u = (_rand(rng, 2, B, nj * ni // 2, device=cuda) for _ in range(2))
+    for color in (0, 1):
+        assert _close(soa.half_sweep, (lv, rhs, u, color)) < REL_TOL
+    assert _close(soa.residual, (lv, rhs, u)) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M, K, N, batch, base", [
+    (16, 36, 32, 2, False), (36, 16, 32, 2, True), (4, 16, 2048, 2, False),
+    (64, 64, 1, 1, False)])
+def test_small_gemm_kernel(cuda, M, K, N, batch, base):
+    rng = np.random.default_rng(0)
+    args = [_rand(rng, M, K, device=cuda), _rand(rng, batch, K, N, device=cuda)]
+    if base:
+        args.append(_rand(rng, batch, M, N, device=cuda))
+    assert _close(soa.small_gemm, tuple(args)) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bf, Bc, dims_c", [(4, 4, (4, 4)), (9, 9, (2, 4)),
+                                            (4, 4, (32, 32))])
+def test_geo_transfer_kernel(cuda, Bf, Bc, dims_c):
+    rng = np.random.default_rng(0)
+    njc, nic = dims_c
+    Cc, Cf = njc * nic // 2, 2 * njc * nic
+    R4, P4 = _rand(rng, 4, Bc, Bf, device=cuda), _rand(rng, 4, Bf, Bc, device=cuda)
+    assert _close(soa.geo_transfer, (R4, _rand(rng, 2, Bf, Cf, device=cuda),
+                                     dims_c, True)) < REL_TOL
+    assert _close(soa.geo_transfer, (P4, _rand(rng, 2, Bc, Cc, device=cuda),
+                                     dims_c, False,
+                                     _rand(rng, 2, Bf, Cf, device=cuda))) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_cycle_and_solve_on_the_card(cuda, tmp_path, monkeypatch):
+    """The 8x8 p=5 hierarchy: one kernel cycle vs the plain cycle on the
+    card, then the mixed route through the kernels to 1e-10."""
+    import dgtpu_torch.api as tapi
+    from dgtpu_torch.settings import Settings, load_params
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    params = load_params()
+    params["performance"]["precision"] = "mixed"
+    params["visualization"]["export"] = False
+    params["logging"]["loglevel"] = "ERROR"
+    dg = tapi.DGFEM(device="cuda", settings=Settings(params), solve_multigrid=True)
+    dims = [(l.Nj, l.Ni) for l in dg.levels]
+
+    def cycle(**kw):
+        return soa.SoAVCycle([l.op for l in dg.levels], dg.transfers,
+                             dg.transfer_types, dg.settings, dims, **kw)
+
+    rhs = dg.levels[-1].rhs
+    u_k = cycle()(rhs, torch.zeros_like(rhs))
+    u_p = cycle(reference=True)(rhs, torch.zeros_like(rhs))
+    assert float((u_k - u_p).abs().max() / u_p.abs().max()) < REL_TOL
+    soa.reset_launch_counts()
+    dg.solve()
+    assert dg.solve_residual < 1e-10
+    assert all(k.launches > 0 for k in soa.KERNELS)

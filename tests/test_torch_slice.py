@@ -1,0 +1,137 @@
+"""The port's mixed-precision Poisson route end to end against dgtpu's, on
+the CPU: DGFEM assembly -> float32 SoA cycles inside float64 defect
+correction -> L1/L2 MMS errors -> summary.txt.
+
+8x8 p=2 (p 2->1 plus one geometric level): L1/L2(u) agree to 1e-6
+relative and the outer-round counts differ by at most one (the port's
+defect is native float64, dgtpu's the df32 compensated one).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import __graft_entry__
+
+import dgtpu_torch.api as tapi
+from dgtpu_torch.__main__ import build_parser, main
+from dgtpu_torch.settings import Settings, load_params
+
+torch.set_num_threads(1)
+
+
+def _port_params(grid, p, levels):
+    params = load_params()
+    params["grid"]["filename"] = grid
+    params["grid"]["polynomial degree"] = p
+    params["solution"]["u"]["polynomial degree"] = p
+    params["solver"]["multigrid"]["polynomial coarsening"]["levels"]["u"] = levels
+    params["performance"]["precision"] = "mixed"
+    params["visualization"]["export"] = False
+    params["logging"]["loglevel"] = "ERROR"
+    return params
+
+
+@pytest.fixture(scope="module")
+def solved(tmp_path_factory):
+    ref = __graft_entry__._flagship(n=8, p_grid=2, p_sol=2)
+    ref.settings.performance.precision = "mixed"
+    ref.solve()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tapi, "OUTPUT_ROOT", str(tmp_path_factory.mktemp("out")))
+        port = tapi.DGFEM(device="cpu", solve_multigrid=True, settings=Settings(
+            _port_params("Rectangle_8X8_nPoly2.xyz", 2, "1,2")))
+        port.solve()
+    return ref, port
+
+
+def test_hierarchy_matches(solved):
+    ref, port = solved
+    assert port.transfer_types == ref.transfer_types
+    assert [(l.Nj, l.Ni, l.P_sol["u"]) for l in port.levels] == \
+        [(l.Nj, l.Ni, l.P_sol["u"]) for l in ref.levels]
+
+
+def test_errors_match_dgtpu(solved):
+    ref, port = solved
+    assert port.L1_error_u == pytest.approx(ref.L1_error_u, rel=1e-6)
+    assert port.L2_error_u == pytest.approx(ref.L2_error_u, rel=1e-6)
+
+
+def test_outer_rounds_within_one(solved):
+    ref, port = solved
+    assert abs(port.outer_rounds - (len(ref.residuals) - 1)) <= 1
+    assert port.solve_residual < 1e-10
+    assert port.residuals[0] == 1.0 and port.residuals[-1] == port.solve_residual
+
+
+def test_nodal_solution_matches(solved):
+    ref, port = solved
+    scale = np.abs(ref.u_nodal).max()
+    assert np.abs(port.u_nodal - ref.u_nodal).max() / scale < 1e-8
+
+
+def _paramfile(tmp_path, **overrides):
+    params = _port_params("Rectangle_4X4_nPoly2.xyz", 2, "1,2")
+    params["visualization"]["export"] = True
+    params["solver"]["multigrid"]["full multigrid"] = True
+    for path, value in overrides.items():
+        node = params
+        *keys, leaf = path.split(".")
+        for k in keys:
+            node = node[k]
+        node[leaf] = value
+    path = tmp_path / "paramfile.yml"
+    path.write_text(yaml.safe_dump(params))
+    return str(path)
+
+
+def test_cli_writes_summary(tmp_path, monkeypatch):
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    dg = main(["-m", "--precision", "mixed", "--device", "cpu", "--silent",
+               "--paramfile", _paramfile(tmp_path)])
+    assert dg.solve_residual < 1e-10
+    summary = open(dg.solution_summary_filepath).read()
+    assert dg.solution_summary_filepath.startswith(str(tmp_path))
+    assert "### grid=Rectangle_4X4_nPoly2" in summary
+    assert f"L2 error={dg.L2_error_u}" in summary
+    assert os.path.exists(dg.solution_visualization_filepath + ".vts")
+    hist = os.listdir(tmp_path / "postprocessing" / "multigrid")
+    assert len(hist) == 1 and hist[0].endswith("_rectangle.npy")
+
+
+@pytest.mark.parametrize("override, item", [
+    ({"performance.precision": "full"}, "item 8"),
+    ({"performance.n_shards": 2}, "item 12"),
+    ({"problem.type": "Stokes"}, "item 9"),
+    ({"solver.multigrid.geometric coarsening.use FVM": True}, "item 11"),
+    ({"caching.enabled": True}, "item 5"),
+    ({"problem.check eigenvalues": True}, "item 11"),
+    ({"problem.orthonormal on physical element": True}, "item 9"),
+])
+def test_unported_branches_raise(tmp_path, monkeypatch, override, item):
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    params = yaml.safe_load(open(_paramfile(tmp_path, **override)))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        tapi.DGFEM(device="cpu", settings=Settings(params), solve_multigrid=True)
+
+
+def test_other_solver_routes_raise(tmp_path, monkeypatch):
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path), solve_direct=True)
+    with pytest.raises(SystemExit) as exc:
+        main(["-d", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
+    assert exc.value.code == 1
+
+
+def test_device_is_explicit(tmp_path, monkeypatch):
+    assert build_parser().parse_args(["-m"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapi.DGFEM(paramfile=_paramfile(tmp_path), solve_multigrid=True)
