@@ -2,8 +2,10 @@
 
     python -m dgtpu_torch -m --precision mixed [--device cuda|cpu] [options]
 
-Only the mixed-precision Poisson multigrid route is ported; any other
-solver or option raises NotImplementedError naming its ROADMAP item.
+The mixed-precision multigrid routes are ported: Poisson, and global-order
+Stokes with distributive-GS smoothing (``problem.type: Stokes`` in the
+paramfile); any other solver or option raises NotImplementedError naming
+its ROADMAP item.
 """
 
 import argparse
@@ -22,7 +24,8 @@ class MutuallyExclusiveArgumentError(Exception):
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="DG solver (dgtpu_torch)",
-        description="PyTorch/CUDA DG solver for the Poisson problem")
+        description="PyTorch/CUDA DG solver for the Poisson and Stokes "
+                    "problems")
     parser.add_argument("--grid-folder", type=str)
     parser.add_argument("-f", "--grid-file", type=str)
     parser.add_argument("--p-grid", type=int)

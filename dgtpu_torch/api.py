@@ -1,12 +1,15 @@
 """DGFEM orchestrator — the port of ``dgtpu/api.py`` for the mixed-precision
-Poisson multigrid route.
+multigrid routes: Poisson, and global-order Stokes with distributive-GS
+smoothing.
 
 Builds settings + manufactured solution, reads the grid, constructs the
 multigrid hierarchy (penalty / polynomial / geometric coarsening) with its
 transfers, assembles every level in float64 on the chosen device, solves
 with float32 SoA cycles inside float64 defect correction (optionally seeded
-by an FMG pass), and post-processes: residual norms, modal->nodal values,
-L1/L2 MMS errors, VTK export and ``summary.txt`` in the reference's schema.
+by an FMG pass; Stokes retries with GMRES-wrapped cycles when the plain
+refinement stalls), and post-processes: residual norms, the Stokes pressure
+mean shift, modal->nodal values, L1/L2 MMS errors, VTK export and
+``summary.txt`` in the reference's schema.
 
 Every branch of dgtpu's orchestrator that this slice does not port raises
 NotImplementedError naming its ROADMAP item; nothing falls back to another
@@ -24,7 +27,12 @@ from dgtpu_torch.io.vtk import elements_to_vtk, grid_to_vtk, nodal_lattice
 from dgtpu_torch.level import CoarseGridLevel, GridLevel
 from dgtpu_torch.mms import ManufacturedSolution
 from dgtpu_torch.models.poisson import assemble_poisson
+from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
+                                       StokesPolynomialTransfer, assemble_stokes,
+                                       pressure_mean_shift,
+                                       reorder_global_to_local)
 from dgtpu_torch.ops.soa import SoAVCycle
+from dgtpu_torch.ops.stokes_soa import _DGS, SoAStokesVCycle
 from dgtpu_torch.ops.transfer import make_transfer
 from dgtpu_torch.settings import Settings, load_params
 from dgtpu_torch.solvers.refinement import make_refined_solver
@@ -33,7 +41,7 @@ from dgtpu_torch.utils.norms import lp_norm
 from dgtpu_torch.utils.timer import Timer, synchronize
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# results/ and postprocessing/ are written below this directory
+# results/ and postprocessing/dgtpu_torch/ are written below this directory
 OUTPUT_ROOT = REPO_ROOT
 
 _CHECK_FLAGS = ("check_condition_number", "check_eigenvalues",
@@ -47,8 +55,6 @@ def _unsupported(settings, method):
     s = settings
     mg = s.solver.multigrid
     perf = getattr(s, "performance", None)
-    if s.problem.type != "Poisson":
-        return f"problem type {s.problem.type}", "Queue 1 item 9 (Stokes)"
     if method != "multigrid":
         return f"solver method {method!r}", \
             "Queue 1 items 8 and 11 (the other solver routes)"
@@ -57,13 +63,25 @@ def _unsupported(settings, method):
             "Queue 1 item 8 (full-precision generic multigrid)"
     if int(getattr(perf, "n_shards", 1) or 1) > 1:
         return "performance.n_shards > 1", "Queue 1 item 12 (multi-GPU)"
+    if s.problem.type == "Stokes":
+        if s.solution.ordering != "global":
+            return "local-ordering Stokes", "Queue 1 item 9 (local ordering)"
+        for kind in ("penalty_parameter", "polynomial", "geometric"):
+            node = getattr(mg, f"{kind}_coarsening")
+            if not node.enabled:
+                continue
+            for side in (node.pre_smoother, node.post_smoother):
+                if str(side.smoother).lower() != _DGS:
+                    return (f"Stokes smoother {side.smoother!r}",
+                            "Queue 1 item 9 (Stokes smoothers other than "
+                            "distributive GS)")
     if mg.geometric_coarsening.enabled and mg.geometric_coarsening.use_FVM:
         return "an FVM coarse level", "Queue 1 item 11 (models/fvm.py)"
     if s.caching.enabled:
         return "caching.enabled", "Queue 1 item 5 (utils/caching.py)"
     if getattr(s.problem, "orthonormal_on_physical_element", False):
         return "problem.orthonormal_on_physical_element", \
-            "Queue 1 item 9 (ops/orthonormal.py)"
+            "Queue 1 item 14 (ops/orthonormal.py)"
     for flag in _CHECK_FLAGS:
         if getattr(s.problem, flag, False):
             return f"problem.{flag}", "Queue 1 item 11 (diagnostics.py)"
@@ -98,6 +116,11 @@ class DGFEM:
                 self.settings.solver.method = key.removeprefix("solve_")
         if not hasattr(self.settings.solver, "method"):
             self.settings.solver.method = "direct"
+        problem = self.settings.problem.type
+        if problem not in ("Poisson", "Stokes"):
+            raise NotImplementedError(
+                f"There exists no implementation for the {problem} equation(s), "
+                f"possible equation(s) are: Poisson|Stokes")
         missing = _unsupported(self.settings, self.settings.solver.method)
         if missing:
             raise NotImplementedError(
@@ -110,12 +133,20 @@ class DGFEM:
         grid_filepath = os.path.join(grid_filepath, self.settings.grid.filename)
         self.geometry = Geometry(grid_filepath, self.settings)
 
-        self.vars = ["u"]
-        self.P_sol = {"u": self.settings.solution.u.polynomial_degree}
+        self.vars = ["u"] if problem == "Poisson" else ["u", "p"]
+        self.P_sol = {v: getattr(self.settings.solution, v).polynomial_degree
+                      for v in self.vars}
+        exact = {k: getattr(self.settings.problem.exact_solution, k, None)
+                 for k in ("u", "v", "p")}
         lam = getattr(self.settings.problem.exact_solution, "lam", None)
         self.mms = ManufacturedSolution(
-            {"u": self.settings.problem.exact_solution.u}, "Poisson",
-            self.settings.problem.kinematic_viscosity, lam_expr=lam)
+            exact, problem, self.settings.problem.kinematic_viscosity,
+            lam_expr=lam)
+        if problem == "Stokes":
+            if self.settings.solution.manufactured_solution:
+                self.mms.check_divergence_free()
+            self.exact_p_mean = self.mms.compute_pressure_mean(
+                self.geometry, self.settings.grid.circular)
         self.settings._validate_settings(self.settings)
 
         # results folder structure (dgfem.py:64-101)
@@ -123,11 +154,15 @@ class DGFEM:
         results_folder = f"exact_sol_{self.settings.problem.exact_solution.tag}"
         mul = self.settings.problem.SIP_penalty_parameter_multiplier
         results_folder += f"_sigmamul{mul}".replace(".", "_")
-        self.results_dir = os.path.join(OUTPUT_ROOT, "results", "Poisson",
+        if problem == "Stokes":
+            results_folder += (f"_gamma{self.settings.problem.velocity_penalty_parameter}"
+                               .replace(".", "_"))
+        self.results_dir = os.path.join(OUTPUT_ROOT, "results", problem,
                                         f"grid_{grid_filename}", results_folder)
         os.makedirs(self.results_dir, exist_ok=True)
         self.solution_visualization_filepath = os.path.join(
-            self.results_dir, f"solution_Pu{self.P_sol['u']}")
+            self.results_dir,
+            "solution_" + "_".join(f"P{v}{self.P_sol[v]}" for v in self.vars))
         self.solution_summary_filepath = os.path.join(self.results_dir, "summary.txt")
 
         self.residuals = []
@@ -185,19 +220,35 @@ class DGFEM:
             self.transfer_types[0:0] = ["penalty_parameter"] * (len(sigmas) - 1)
 
         if mg.polynomial_coarsening.enabled:
-            p_levels = sorted(map(int, str(mg.polynomial_coarsening.levels.u).split(",")))
+            node = mg.polynomial_coarsening.levels
+            p_levels = {"u": sorted(map(int, str(node.u).split(",")))}
+            if "p" in self.vars:
+                if getattr(node, "p", None) is not None:
+                    p_levels["p"] = sorted(map(int, str(node.p).split(",")))
+                else:
+                    # pressure levels derived from the velocity ones
+                    # (Taylor-Hood pairing), as dgtpu does
+                    p_levels["p"] = [max(pu - 1, 0) for pu in p_levels["u"]]
             if mg.penalty_parameter_coarsening.enabled:
-                p_levels_grids = p_levels[:-1]
+                p_levels_grids = {v: lv[:-1] for v, lv in p_levels.items()}
                 s.problem.SIP_penalty_parameter_multiplier = multipliers[0]
             else:
                 p_levels_grids = p_levels
             self.levels[0:0] = [
-                self._level({"u": p}, (p + 1) ** 2
+                self._level(dict(zip(p_levels_grids, ps)), (ps[0] + 1) ** 2
                             * s.problem.SIP_penalty_parameter_multiplier)
-                for p in p_levels_grids]
-            p_transfers = [make_transfer("polynomial", p_fine=p_levels[i + 1],
-                                         p_coarse=p_levels[i], device=dev)
-                           for i in range(len(p_levels) - 1)]
+                for ps in zip(*p_levels_grids.values())]
+            pu = p_levels["u"]
+            if "p" in self.vars:
+                pp = p_levels["p"]
+                p_transfers = [StokesPolynomialTransfer(
+                    self.geometry.N, pu_fine=pu[i + 1], pu_coarse=pu[i],
+                    pp_fine=pp[i + 1], pp_coarse=pp[i], device=dev)
+                    for i in range(len(pu) - 1)]
+            else:
+                p_transfers = [make_transfer("polynomial", p_fine=pu[i + 1],
+                                             p_coarse=pu[i], device=dev)
+                               for i in range(len(pu) - 1)]
             self.transfers[0:0] = p_transfers
             self.transfer_types[0:0] = ["polynomial"] * len(p_transfers)
 
@@ -218,9 +269,15 @@ class DGFEM:
             coarse = [CoarseGridLevel(self.geometry, base, s, self.vars, cf,
                                       device=dev) for cf in cfs]
             self.levels[0:0] = coarse
-            geo_transfers = [make_transfer(
-                "geometric", p_fine=self.levels[k].P_sol["u"], cf=2, device=dev)
-                for k in range(len(coarse))]
+            if "p" in self.vars:
+                geo_transfers = [StokesGeometricTransfer(
+                    self.levels[k].Ni, self.levels[k].Nj,
+                    pu=self.levels[k].P_sol["u"], pp=self.levels[k].P_sol["p"],
+                    device=dev) for k in range(len(coarse))]
+            else:
+                geo_transfers = [make_transfer(
+                    "geometric", p_fine=self.levels[k].P_sol["u"], cf=2,
+                    device=dev) for k in range(len(coarse))]
             self.transfers[0:0] = geo_transfers
             self.transfer_types[0:0] = ["geometric"] * len(geo_transfers)
 
@@ -230,8 +287,11 @@ class DGFEM:
     def _assemble_all(self):
         finest = self.levels[-1]
         for lvl in self.levels:
-            lvl.op, lvl.rhs, lvl.inv_mass = assemble_poisson(
-                lvl, self.mms if lvl is finest else None)
+            mms = self.mms if lvl is finest else None
+            if "p" in self.vars:
+                assemble_stokes(lvl, mms)
+            else:
+                lvl.op, lvl.rhs, lvl.inv_mass = assemble_poisson(lvl, mms)
 
     # ------------------------------------------------------------------ solve
 
@@ -252,7 +312,10 @@ class DGFEM:
     def _solve_multigrid_mixed(self, finest):
         """Mixed-precision multigrid: float32 SoA cycles (the CUDA kernels on
         a GPU) inside float64 defect correction, optionally seeded by the
-        FMG guess (``solver.multigrid.full_multigrid``)."""
+        FMG guess (``solver.multigrid.full_multigrid``).  When the plain
+        refinement stalls (deep Stokes hierarchies push the stand-alone
+        cycle's contraction past 1), the Stokes route retries with
+        GMRES(16)-wrapped cycles, as dgtpu does (``api.py:557-578``)."""
         s = self.settings
         mg = s.solver.multigrid
         fmg_on = bool(getattr(mg, "full_multigrid", False))
@@ -263,24 +326,44 @@ class DGFEM:
             raise NotImplementedError(
                 "an odd Ni on some level: dgtpu runs the rolled-layout cycle "
                 "there, which is not ported yet (ROADMAP Queue 1 item 8)")
-        cycle = SoAVCycle([l.op for l in self.levels], self.transfers,
-                          self.transfer_types, s, dims, dtype=torch.float32,
-                          device=self.device)
+        stokes = "p" in self.vars
+        if stokes:
+            cycle = SoAStokesVCycle(self.levels, self.transfers,
+                                    self.transfer_types, s, dtype=torch.float32,
+                                    device=self.device)
+        else:
+            cycle = SoAVCycle([l.op for l in self.levels], self.transfers,
+                              self.transfer_types, s, dims, dtype=torch.float32,
+                              device=self.device)
         rhs = finest.rhs
         u0 = torch.zeros_like(rhs)
-        kind = "SoA"
+        kind = "Stokes SoA" if stokes else "SoA"
         if fmg_on:
             # the FMG pass's finest-level cycle is the same cycle the
             # refinement runs
             u0 = cycle.build_fmg(finest_cycle=cycle)(rhs).to(rhs.dtype)
             kind += " + FMG guess"
+        normalize = "rhs" if fmg_on else "u0"
         refined = make_refined_solver(finest.op, cycle, n_inner=6, tol=tol,
-                                      normalize="rhs" if fmg_on else "u0")
+                                      normalize=normalize)
         u, res, n, hist = refined(rhs, u0)
         self.residuals = [r for r in hist if math.isfinite(r)]
+        self.inner, self.rounds = "cycles", {"cycles": n}
         self.logger.info(
             f"mixed-precision multigrid ({kind} inner cycle): {n} outer "
             f"refinement rounds x 6 f32 cycles, residual {res:.3e}")
+        if not res < tol and stokes:
+            self.logger.warning(
+                f"mixed-precision refinement stalled at {res:.3e}; retrying "
+                "with f32 GMRES-wrapped inner cycles")
+            refined = make_refined_solver(
+                finest.op, cycle, n_inner=16, tol=tol, normalize=normalize,
+                inner="gmres", matvec32=cycle.build_matvec())
+            u, res, n, hist = refined(rhs, u0)
+            self.residuals += [r for r in hist if math.isfinite(r)]
+            self.inner, self.rounds["gmres"] = "gmres", n
+            self.logger.info(f"GMRES-wrapped refinement: {n} outer rounds, "
+                             f"residual {res:.3e}")
         if res >= tol:
             self.logger.warning(
                 f"mixed-precision refinement stopped at {res:.3e} "
@@ -288,9 +371,11 @@ class DGFEM:
         return u, res, n
 
     def _save_residual_history(self):
-        """Residual history as .npy (the reference pickles it, solver.py:128-138)."""
+        """Residual history as .npy (the reference pickles it, solver.py:128-138),
+        under the port's own directory so dgtpu's histories stay apart."""
         lvl = self.levels[-1]
-        path = os.path.join(OUTPUT_ROOT, "postprocessing", "multigrid")
+        path = os.path.join(OUTPUT_ROOT, "postprocessing", "dgtpu_torch",
+                            "multigrid")
         os.makedirs(path, exist_ok=True)
         name = (f"residuals_{self.settings.problem.type}_{lvl.Ni}X{lvl.Nj}"
                 f"_nPoly{lvl.P_grid}_" + "_".join(sorted(set(self.transfer_types))))
@@ -302,6 +387,7 @@ class DGFEM:
     def _postprocess(self, u_modal):
         s = self.settings
         finest = self.levels[-1]
+        stokes = "p" in self.vars
 
         residual_0 = float(lp_norm(finest.rhs, 2))
         self.residual = float(lp_norm(finest.rhs - finest.op.matvec(u_modal), 2))
@@ -310,26 +396,51 @@ class DGFEM:
         self.logger.info(f"L2 norm of the residual (modal): "
                          f"{self.residual / residual_0:.6e} (normalized)")
 
+        u_local = reorder_global_to_local(finest, u_modal) if stokes else u_modal
+        u_el = u_local.reshape(finest.N, finest.N_DOF_sol_tot)
+        if stokes:
+            u_el = pressure_mean_shift(finest, u_el)
+
         # modal -> nodal (dgfem.py:201-209), batched
-        u_el = u_modal.reshape(finest.N, finest.N_DOF_sol_tot)
-        Vg = torch.as_tensor(finest.quad.V_sol_grid["u"], device=self.device)
-        u_nodal = u_el @ Vg.T
+        def to_nodal(modal, var):
+            Vg = torch.as_tensor(finest.quad.V_sol_grid[var], device=self.device)
+            return modal @ Vg.T
+
+        nu_dof = finest.N_DOF_sol["u"]
         X = torch.as_tensor(finest.X, device=self.device)
         Y = torch.as_tensor(finest.Y, device=self.device)
-        u_exact = self.mms.u(X, Y)
-        self.L1_error_u = float(lp_norm(u_nodal - u_exact, 1))
-        self.L2_error_u = float(lp_norm(u_nodal - u_exact, 2))
-        self.logger.info(f"The norms of the error (nodal) are: "
-                         f"L1={self.L1_error_u:.6e}, L2={self.L2_error_u:.6e}")
+        fields = {"u": (to_nodal(u_el[:, :nu_dof], "u"), self.mms.u(X, Y))}
+        if stokes:
+            np_dof = finest.N_DOF_sol["p"]
+            fields["v"] = (to_nodal(u_el[:, nu_dof:2 * nu_dof], "u"), self.mms.v(X, Y))
+            fields["p"] = (to_nodal(u_el[:, -np_dof:], "p"), self.mms.p(X, Y))
+        for var, (num, exact) in fields.items():
+            setattr(self, f"L1_error_{var}", float(lp_norm(num - exact, 1)))
+            setattr(self, f"L2_error_{var}", float(lp_norm(num - exact, 2)))
+        if stokes:
+            for var, name in (("u", "u-velocity"), ("v", "v-velocity"),
+                              ("p", "pressure")):
+                self.logger.info(
+                    f"The norms of the error in {name} (nodal) are: "
+                    f"L1={getattr(self, f'L1_error_{var}'):.6e}, "
+                    f"L2={getattr(self, f'L2_error_{var}'):.6e}")
+        else:
+            self.logger.info(f"The norms of the error (nodal) are: "
+                             f"L1={self.L1_error_u:.6e}, L2={self.L2_error_u:.6e}")
 
-        self.u_nodal = u_nodal.cpu().numpy()
+        self.u_nodal = fields["u"][0].cpu().numpy()
         if s.visualization.export:
-            nn = nodal_lattice(finest, self.u_nodal)
-            ne = nodal_lattice(finest, u_exact.cpu().numpy())
+            # VTK field names as dgtpu's (_nodal_lattices)
+            names = {"u": "phi", "v": "v", "p": "pressure"}
+            lattices = {}
+            for var, (num, exact) in fields.items():
+                nn = nodal_lattice(finest, num.cpu().numpy())
+                ne = nodal_lattice(finest, exact.cpu().numpy())
+                name = names[var]
+                lattices.update({name: nn, f"{name}_exact": ne,
+                                 f"abs_error_{name}": np.abs(nn - ne)})
             elements_to_vtk(self.solution_visualization_filepath,
-                            self.geometry.x, self.geometry.y,
-                            {"phi": nn, "phi_exact": ne,
-                             "abs_error_phi": np.abs(nn - ne)})
+                            self.geometry.x, self.geometry.y, lattices)
         self._write_summary_results()
         return u_modal
 
@@ -340,11 +451,16 @@ class DGFEM:
             f.write("###          SIMULATION SUMMARY          ###\n")
             f.write("############################################\n\n")
             f.write(f"### grid={grid_filename}\n")
-            f.write(f"### exact solution={ {'u': s.problem.exact_solution.u} }\n")
+            exact = {k: getattr(s.problem.exact_solution, k, None)
+                     for k in (("u",) if s.problem.type == "Poisson"
+                               else ("u", "v", "p"))}
+            f.write(f"### exact solution={exact}\n")
             f.write(f"### Ni={self.geometry.Ni}, Nj={self.geometry.Nj}\n")
             f.write(f"### P grid={s.grid.polynomial_degree}\n")
             f.write(f"### P sol={self.P_sol}\n")
             f.write(f"### epsilon multiplier={s.problem.SIP_penalty_parameter_multiplier}\n")
+            if s.problem.type == "Stokes":
+                f.write(f"### gamma={s.problem.velocity_penalty_parameter}\n")
             f.write("###\n")
             f.write("### solver=multigrid\n\n")
             f.write("############################################\n\n")
@@ -352,5 +468,11 @@ class DGFEM:
     def _write_summary_results(self):
         with open(self.solution_summary_filepath, "a") as f:
             f.write(f"Residual={self.residual}\n")
-            f.write(f"L1 error={self.L1_error_u}\n")
-            f.write(f"L2 error={self.L2_error_u}\n")
+            if "p" in self.vars:
+                for var, name in (("u", "u-velocity"), ("v", "v-velocity"),
+                                  ("p", "pressure")):
+                    f.write(f"L1 error={getattr(self, f'L1_error_{var}')} ({name})\n")
+                    f.write(f"L2 error={getattr(self, f'L2_error_{var}')} ({name})\n")
+            else:
+                f.write(f"L1 error={self.L1_error_u}\n")
+                f.write(f"L2 error={self.L2_error_u}\n")

@@ -9,6 +9,7 @@ so this module, like the rest of the package, never imports jax.
 import numpy as np
 import torch
 
+from dgtpu_torch.models.stokes import StokesGlobalOperator
 from dgtpu_torch.ops.stencil import StencilOperator
 from dgtpu_torch.ops.transfer import TransferOp
 
@@ -27,16 +28,78 @@ def from_dgtpu_arrays(levels, transfers, types, dims, device="cpu"):
     if not (len(levels) == len(dims) == len(transfers) + 1 == len(types) + 1):
         raise ValueError("need one transfer and one type between each pair of "
                          "levels, and one (Nj, Ni) per level")
-    ops = []
-    for lv, (nj, ni) in zip(levels, dims):
-        blocks = np.array(lv["blocks"], dtype=np.float64)
-        if blocks.shape[0] != nj * ni:
-            raise ValueError(f"level with {blocks.shape[0]} elements does not "
-                             f"match dims {(nj, ni)}")
-        ops.append(StencilOperator(
-            torch.as_tensor(blocks, device=device),
-            torch.as_tensor(np.array(lv["nbr"]), dtype=torch.int64, device=device),
-            torch.as_tensor(np.array(lv["mask"]), dtype=torch.bool, device=device)))
+    ops = [_stencil(lv, nj * ni, device) for lv, (nj, ni) in zip(levels, dims)]
     out = [TransferOp(t["kind"], np.array(t["R"]), np.array(t["P"]), device=device)
            for t in transfers]
     return ops, out
+
+
+def _stencil(lv, n, device):
+    blocks = np.array(lv["blocks"], dtype=np.float64)
+    if blocks.shape[0] != n:
+        raise ValueError(f"level with {blocks.shape[0]} elements does not match "
+                         f"its {n} cells")
+    return StencilOperator(
+        torch.as_tensor(blocks, device=device),
+        torch.as_tensor(np.array(lv["nbr"]), dtype=torch.int64, device=device),
+        torch.as_tensor(np.array(lv["mask"]), dtype=torch.bool, device=device))
+
+
+class StokesLevel:
+    """The part of a Stokes GridLevel the SoA cycle reads: sizes, P_sol /
+    N_DOF_sol and the component stencils ``block_A/D/G`` with the
+    (unpinned) saddle operator ``op``."""
+
+    def __init__(self, nj, ni, p_u, p_p, A, D, G):
+        self.Nj, self.Ni, self.N = nj, ni, nj * ni
+        self.P_sol = {"u": p_u, "p": p_p}
+        self.N_DOF_sol = {v: (p + 1) ** 2 for v, p in self.P_sol.items()}
+        self.block_A, self.block_D, self.block_G = A, D, G
+        self.op = StokesGlobalOperator(A, D, G, pin=False)
+
+
+class StokesTransfer:
+    """A carried-across Stokes transfer: ``kind`` and, per kind, ``Ru``/``Rp``
+    (polynomial) or ``tu``/``tp`` TransferOps (geometric)."""
+
+    def __init__(self, kind, **parts):
+        self.kind = kind
+        for name, value in parts.items():
+            setattr(self, name, value)
+
+
+def from_dgtpu_stokes_arrays(levels, transfers, dims, device="cpu"):
+    """Port objects from numpy copies of a dgtpu global-order Stokes
+    hierarchy, in float64 on ``device``.
+
+    ``levels``: per level (coarsest first) a mapping with ``p_u``, ``p_p``
+    and, for each of ``A``, ``D`` and ``G``, a mapping of the
+    ``StencilOperator`` fields ``blocks``, ``nbr`` and ``mask``;
+    ``transfers``: per transfer a mapping with ``kind`` and, for
+    'polynomial', ``Ru`` and ``Rp``, for 'geometric', ``tu`` and ``tp``
+    (each a mapping with ``R`` and ``P``); ``dims``: [(Nj, Ni)] per level.
+    Returns ``(levels, transfers)``: StokesLevels and StokesTransfers for
+    ``ops.stokes_soa.SoAStokesVCycle``.
+    """
+    if not len(levels) == len(dims) == len(transfers) + 1:
+        raise ValueError("need one transfer between each pair of levels, and "
+                         "one (Nj, Ni) per level")
+    out_levels = [StokesLevel(nj, ni, int(lv["p_u"]), int(lv["p_p"]),
+                              *(_stencil(lv[c], nj * ni, device) for c in "ADG"))
+                  for lv, (nj, ni) in zip(levels, dims)]
+
+    def t64(a):
+        return torch.as_tensor(np.array(a, dtype=np.float64), device=device)
+
+    out_transfers = []
+    for t in transfers:
+        if t["kind"] == "polynomial":
+            out_transfers.append(StokesTransfer("polynomial", Ru=t64(t["Ru"]),
+                                                Rp=t64(t["Rp"])))
+        elif t["kind"] == "geometric":
+            out_transfers.append(StokesTransfer("geometric", **{
+                c: TransferOp("geometric", np.array(t[c]["R"]), np.array(t[c]["P"]),
+                              device=device) for c in ("tu", "tp")}))
+        else:
+            out_transfers.append(StokesTransfer(t["kind"]))
+    return out_levels, out_transfers

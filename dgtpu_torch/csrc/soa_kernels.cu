@@ -1,30 +1,45 @@
-// Hopper kernels for the SoA (cells-in-lanes) multigrid cycle.
+// Hopper kernels for the SoA (cells-in-lanes) multigrid cycles.
 //
-// They replace the one Pallas TPU kernel of dgtpu's mixed-precision Poisson
-// route, SoAVCycle.build (dgtpu/ops/pallas_soa.py:556-592, pallas_call at
-// :574).  The TPU kernel keeps the whole hierarchy in VMEM and runs a cycle
-// in one launch.  One H100 SM has 227 KB of shared memory and even the 8x8
-// p=5 hierarchy is ~2 MB, so here the cycle is split into four phase kernels
-// that read their operands from device memory; the host-side recursion in
-// dgtpu_torch/ops/soa.py (SoAVCycle._cycle, the port of _soa_cycle) launches
-// them in order on PyTorch's current stream.
+// They replace the two Pallas TPU kernels of dgtpu's mixed-precision routes:
+// SoAVCycle.build (Poisson; dgtpu/ops/pallas_soa.py:556-592, pallas_call at
+// :574) and SoAStokesVCycle.build (Stokes distributive GS;
+// dgtpu/ops/pallas_stokes.py:716-759, pallas_call at :739).  Each TPU kernel
+// keeps the whole hierarchy in VMEM and runs a cycle in one launch.  One H100
+// SM has 227 KB of shared memory and even the 8x8 p=5 hierarchy is ~2 MB, so
+// here a cycle is split into phase kernels that read their operands from
+// device memory; the host-side recursions in dgtpu_torch/ops/soa.py
+// (SoAVCycle._cycle) and dgtpu_torch/ops/stokes_soa.py
+// (SoAStokesVCycle._cycle) launch them in order on PyTorch's current stream:
 //
-// Layout (the TPU kernel's, see ops/soa.py): a color-pair vector is
-// (2, B, C) with C = Nj * Ni/2 cells per color in the contiguous axis;
-// operator blocks per color are (5, B_src, B_dst, C), Dinv is (B_src, B_dst, C).
-// Cells on the fast axis make every block read coalesced: for fixed
-// (slot, b_src, b_dst) a warp reads 32 consecutive cells.
+//   K1 half_sweep     one red-black block-GS half-sweep (_soa_smooth body;
+//                     the Stokes _bgs_A on the momentum blocks)
+//   K3 small_gemm     polynomial R/P, u += P e, the dense coarse inverse
+//   K4 geo_transfer   2x2 geometric agglomeration R/P
+//   K5 stencil_apply  base + sign (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))
+//                     with rectangular blocks: the Poisson residual
+//                     (_soa_residual, base = rhs, sign = -1), every stencil
+//                     matvec of the DGS sweep, the saddle residual, and
+//                     SoAStokesVCycle.build_matvec
+//   K6 dg_half_sweep  one color of the Stokes pressure pass (_bgs_dg,
+//                     pallas_stokes.py:382-390) given g = G p from K5
 //
-// What bounds them on the card: at 8x8 p=5 (C = 32 on the finest level) a
-// kernel is one or two CTAs and the cycle is ~90 launches, so launch latency
-// bounds it; at 64x64 (C = 2048) the half-sweep and residual kernels stream
-// the finest level's blocks (4 B^2 C floats per color per half-sweep, ~42 MB),
-// so device-memory bytes bound them.  Fusing phases, CUDA graphs over the
-// launch sequence and a persistent cycle kernel are later work.
+// Layout (the TPU kernels'): a color-pair vector is (2, B, C) with C =
+// Nj * Ni/2 cells per color in the contiguous axis; operator blocks per color
+// are (5, B_src, B_dst, C), diagonal matrices (B_src, B_dst, C).  Cells on the
+// fast axis make every block read coalesced: for fixed (slot, b_src, b_dst) a
+// warp reads 32 consecutive cells.
+//
+// What bounds them on the card: at 8x8 (C = 32 on the finest level) a kernel
+// is one or two CTAs and a cycle is ~90 (Poisson p5) to ~800 (Stokes
+// W-cycle) launches, so the host's launch rate bounds the cycle; at 64x64 p5
+// (C = 2048) K1 and K5 stream the finest level's blocks (~42 MB per
+// half-sweep), so device-memory bytes bound them.  Fusing phases, CUDA graphs
+// over the launch sequence and a persistent cycle kernel are later work.
 //
 // Every entry point is extern "C" (bound with ctypes), takes raw device
 // pointers the caller allocated, launches on the given stream without
-// synchronising, and returns cudaGetLastError() as an int.
+// synchronising, and returns cudaGetLastError() as an int.  ``accumulate``
+// selects ``out = base + result`` (base may be null otherwise).
 
 #include <cuda_runtime.h>
 
@@ -39,10 +54,12 @@ __device__ __forceinline__ int wrap(int x, int C) {
 
 // Lane of the opposite color's lattice that neighbor ``slot`` (0 iL, 1 iR,
 // 2 jL, 3 jR) of cell q (of ``color``) reads: the index form of
-// SoAVCycle._nbr_fields (pallas_soa.py:312-331).  i-neighbors are -/+1 lanes
-// selected by the row parity, j-neighbors -/+nh lanes; every index wraps mod
-// C like jnp.roll, and wrapped reads land on zero boundary blocks.  On an
-// O-grid the row-start / row-end cells take the two-roll blend instead.
+// SoAVCycle._nbr_fields (pallas_soa.py:312-331) and
+// SoAStokesVCycle._nbr_fields (pallas_stokes.py:326-341).  i-neighbors are
+// -/+1 lanes selected by the row parity, j-neighbors -/+nh lanes; every
+// index wraps mod C like jnp.roll, and wrapped reads land on zero boundary
+// blocks.  On an O-grid the row-start / row-end cells take the two-roll
+// blend instead.
 __device__ __forceinline__ int nbr_lane(int q, int slot, int color, int C,
                                         int nh, int periodic) {
     const int j = q / nh;
@@ -69,79 +86,63 @@ __device__ __forceinline__ void packed_pos(int j, int i, int nh, int* c, int* q)
     *q = j * nh + ip;
 }
 
+// Stage the five fields a stencil row of ``color`` reads into shared memory:
+// slot 0 the color's own lattice at lane q, slots 1..4 the opposite lattice
+// at the neighbor lanes.  fld is (5, B, TC).
+__device__ __forceinline__ void stage_fields(float* fld, const float* x, int color,
+                                             int B, int C, int q, int tx, int ty,
+                                             int ny, int nh, int periodic) {
+    const size_t BC = (size_t)B * C;
+    const float* own = x + (size_t)color * BC;
+    const float* o = x + (size_t)(1 - color) * BC;
+    for (int b = ty; b < B; b += ny)
+        fld[b * TC + tx] = own[(size_t)b * C + q];
+    for (int s = 0; s < 4; ++s) {
+        const int lane = nbr_lane(q, s, color, C, nh, periodic);
+        for (int b = ty; b < B; b += ny)
+            fld[((s + 1) * B + b) * TC + tx] = o[(size_t)b * C + lane];
+    }
+}
+
+// sum_{s >= s0} sum_b blk[s][b][a] * fld[s][b] for cell q: one output mode
+// of the stencil row.  blk is one color's (5, Bs, Bd, C).
+__device__ __forceinline__ float stencil_row(const float* __restrict__ blk,
+                                             const float* fld, int s0, int a, int Bs,
+                                             int Bd, int C, int q, int tx) {
+    const size_t slot = (size_t)Bs * Bd * C;
+    float acc = 0.f;
+    for (int s = s0; s < 5; ++s) {
+        const float* A = blk + (size_t)s * slot;
+        const float* f = fld + s * Bs * TC + tx;
+        for (int b = 0; b < Bs; ++b)
+            acc = fmaf(A[((size_t)b * Bd + a) * C + q], f[b * TC], acc);
+    }
+    return acc;
+}
+
 // K1: one red-black half-sweep, the body of _soa_smooth (pallas_soa.py:341-353):
-//   out[color]   = Dinv_c . (rhs_c - sum_{s=1..4} A_c[s] . nbr_s(u[1-color]))
-//   out[1-color] = u[1-color]
-// CTA = TC cells x blockDim.y output-mode lanes.  The CTA stages the four
-// neighbor fields of its cells in shared memory (4*B*TC floats), then
-// t = rhs - off (B*TC floats), then applies Dinv, so each cell's B modes are
-// gathered once and every block element is read once.
+//   out[color]   = (base[color] +)   Dinv_c . (rhs_c - sum_{s=1..4} A_c[s] . nbr_s(u[1-color]))
+//   out[1-color] = (base[1-color] +) u[1-color]
+// CTA = TC cells x blockDim.y output-mode lanes.  The CTA stages the fields
+// of its cells in shared memory (5*B*TC floats; slot 0 is unused here), then
+// t = rhs - off in place of slot 0, then applies Dinv, so each cell's B
+// modes are gathered once and every block element is read once.  ``base``
+// folds the Stokes sweep's uv + du_s into the last half-sweep.
 __global__ void half_sweep_kernel(const float* __restrict__ blocks,
                                   const float* __restrict__ dinv,
                                   const float* __restrict__ rhs,
                                   const float* __restrict__ u,
+                                  const float* __restrict__ base,
                                   float* __restrict__ out,
-                                  int color, int B, int C, int nh, int periodic) {
-    extern __shared__ float sm[];
-    float* fld = sm;                 // (4, B, TC)
-    float* t = sm + 4 * B * TC;      // (B, TC)
+                                  int color, int B, int C, int nh, int periodic,
+                                  int accumulate) {
+    extern __shared__ float fld[];   // (5, B, TC): t, then the four neighbor fields
     const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
     const int q = blockIdx.x * TC + tx;
     const bool valid = q < C;
     const size_t BC = (size_t)B * C;
     const float* o = u + (size_t)(1 - color) * BC;
     if (valid) {
-        for (int s = 0; s < 4; ++s) {
-            const int lane = nbr_lane(q, s, color, C, nh, periodic);
-            for (int b = ty; b < B; b += ny)
-                fld[(s * B + b) * TC + tx] = o[(size_t)b * C + lane];
-        }
-    }
-    __syncthreads();
-    if (valid) {
-        for (int a = ty; a < B; a += ny) {
-            float acc = 0.f;
-            for (int s = 0; s < 4; ++s) {
-                const float* A = blocks + (size_t)(s + 1) * B * BC;
-                const float* f = fld + s * B * TC + tx;
-                for (int b = 0; b < B; ++b)
-                    acc = fmaf(A[((size_t)b * B + a) * C + q], f[b * TC], acc);
-            }
-            t[a * TC + tx] = rhs[(size_t)a * C + q] - acc;
-        }
-    }
-    __syncthreads();
-    if (valid) {
-        for (int a = ty; a < B; a += ny) {
-            float acc = 0.f;
-            for (int b = 0; b < B; ++b)
-                acc = fmaf(dinv[((size_t)b * B + a) * C + q], t[b * TC + tx], acc);
-            out[(size_t)color * BC + (size_t)a * C + q] = acc;
-            out[(size_t)(1 - color) * BC + (size_t)a * C + q] = o[(size_t)a * C + q];
-        }
-    }
-}
-
-// K2: r = rhs - A.u for both colors (_soa_residual, pallas_soa.py:355-362).
-// blockIdx.y is the color; slot 0 reads the color's own lattice, slots 1..4
-// the opposite one, staged like K1's fields (5*B*TC floats).
-__global__ void residual_kernel(const float* __restrict__ blocks,
-                                const float* __restrict__ rhs,
-                                const float* __restrict__ u,
-                                float* __restrict__ out,
-                                int B, int C, int nh, int periodic) {
-    extern __shared__ float fld[];   // (5, B, TC)
-    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
-    const int color = blockIdx.y;
-    const int q = blockIdx.x * TC + tx;
-    const bool valid = q < C;
-    const size_t BC = (size_t)B * C;
-    const float* own = u + (size_t)color * BC;
-    const float* o = u + (size_t)(1 - color) * BC;
-    const float* Ac = blocks + (size_t)color * 5 * B * BC;
-    if (valid) {
-        for (int b = ty; b < B; b += ny)
-            fld[b * TC + tx] = own[(size_t)b * C + q];
         for (int s = 0; s < 4; ++s) {
             const int lane = nbr_lane(q, s, color, C, nh, periodic);
             for (int b = ty; b < B; b += ny)
@@ -149,18 +150,21 @@ __global__ void residual_kernel(const float* __restrict__ blocks,
         }
     }
     __syncthreads();
-    if (valid) {
-        for (int a = ty; a < B; a += ny) {
-            float acc = 0.f;
-            for (int s = 0; s < 5; ++s) {
-                const float* A = Ac + (size_t)s * B * BC;
-                const float* f = fld + s * B * TC + tx;
-                for (int b = 0; b < B; ++b)
-                    acc = fmaf(A[((size_t)b * B + a) * C + q], f[b * TC], acc);
-            }
-            out[(size_t)color * BC + (size_t)a * C + q] =
-                rhs[(size_t)color * BC + (size_t)a * C + q] - acc;
-        }
+    if (valid)
+        for (int a = ty; a < B; a += ny)
+            fld[a * TC + tx] = rhs[(size_t)a * C + q]
+                             - stencil_row(blocks, fld, 1, a, B, B, C, q, tx);
+    __syncthreads();
+    if (!valid) return;
+    for (int a = ty; a < B; a += ny) {
+        float acc = 0.f;
+        for (int b = 0; b < B; ++b)
+            acc = fmaf(dinv[((size_t)b * B + a) * C + q], fld[b * TC + tx], acc);
+        const size_t oc = (size_t)color * BC + (size_t)a * C + q;
+        const size_t oo = (size_t)(1 - color) * BC + (size_t)a * C + q;
+        const float keep = o[(size_t)a * C + q];
+        out[oc] = accumulate ? base[oc] + acc : acc;
+        out[oo] = accumulate ? base[oo] + keep : keep;
     }
 }
 
@@ -243,6 +247,86 @@ __global__ void geo_transfer_kernel(const float* __restrict__ T4,
     }
 }
 
+// K5: out_c = (base_c +) sign * (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))
+// for both colors (blockIdx.y), rectangular blocks (5, Bs, Bd, C) per color.
+// The CTA stages the five fields of Bs modes for its 32 cells (5*Bs*TC
+// floats), then each thread row reduces output modes a = ty, ty+ny, ....
+__global__ void stencil_apply_kernel(const float* __restrict__ blocks,
+                                     const float* __restrict__ x,
+                                     const float* __restrict__ base,
+                                     float* __restrict__ out,
+                                     int Bs, int Bd, int C, int nh, int periodic,
+                                     float sign, int accumulate) {
+    extern __shared__ float fld[];   // (5, Bs, TC)
+    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
+    const int color = blockIdx.y;
+    const int q = blockIdx.x * TC + tx;
+    const bool valid = q < C;
+    if (valid)
+        stage_fields(fld, x, color, Bs, C, q, tx, ty, ny, nh, periodic);
+    __syncthreads();
+    if (!valid) return;
+    const float* blk = blocks + (size_t)color * 5 * Bs * Bd * C;
+    for (int a = ty; a < Bd; a += ny) {
+        const float y = sign * stencil_row(blk, fld, 0, a, Bs, Bd, C, q, tx);
+        const size_t o = (size_t)color * Bd * C + (size_t)a * C + q;
+        out[o] = accumulate ? base[o] + y : y;
+    }
+}
+
+// K6: one color of the pressure DG half-pass,
+//   out[color]   = (base[color] +)   DG_Dinv_c (rhs_c - (D_c[0] g_c
+//                      + sum_s D_c[s] nbr_s(g_{1-c}) - DG_diag_c p_c))
+//   out[1-color] = (base[1-color] +) p[1-color]
+// D_c is (5, Bu, Np, C); dgd / dgi are (Np, Np, C) in the M^T layout;
+// g = G p (2, Bu, C) comes from K5.  The CTA stages g's five fields
+// (5 Bu TC floats), then t = rhs - off (Np TC floats), then applies DG_Dinv.
+// ``base`` folds the sweep's p + dp into the last half-pass.
+__global__ void dg_half_sweep_kernel(const float* __restrict__ D,
+                                     const float* __restrict__ dgd,
+                                     const float* __restrict__ dgi,
+                                     const float* __restrict__ rhs,
+                                     const float* __restrict__ g,
+                                     const float* __restrict__ p,
+                                     const float* __restrict__ base,
+                                     float* __restrict__ out,
+                                     int color, int Bu, int Np, int C, int nh,
+                                     int periodic, int accumulate) {
+    extern __shared__ float sm[];
+    float* fld = sm;                 // (5, Bu, TC)
+    float* t = sm + 5 * Bu * TC;     // (Np, TC)
+    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
+    const int q = blockIdx.x * TC + tx;
+    const bool valid = q < C;
+    const size_t PC = (size_t)Np * C;
+    const float* pc = p + (size_t)color * PC;
+    const float* po = p + (size_t)(1 - color) * PC;
+    if (valid)
+        stage_fields(fld, g, color, Bu, C, q, tx, ty, ny, nh, periodic);
+    __syncthreads();
+    if (valid) {
+        for (int a = ty; a < Np; a += ny) {
+            const float dg = stencil_row(D, fld, 0, a, Bu, Np, C, q, tx);
+            float diag = 0.f;
+            for (int b = 0; b < Np; ++b)
+                diag = fmaf(dgd[((size_t)b * Np + a) * C + q], pc[(size_t)b * C + q], diag);
+            t[a * TC + tx] = rhs[(size_t)a * C + q] - (dg - diag);
+        }
+    }
+    __syncthreads();
+    if (!valid) return;
+    for (int a = ty; a < Np; a += ny) {
+        float acc = 0.f;
+        for (int b = 0; b < Np; ++b)
+            acc = fmaf(dgi[((size_t)b * Np + a) * C + q], t[b * TC + tx], acc);
+        const size_t oc = (size_t)color * PC + (size_t)a * C + q;
+        const size_t oo = (size_t)(1 - color) * PC + (size_t)a * C + q;
+        const float keep = po[(size_t)a * C + q];
+        out[oc] = accumulate ? base[oc] + acc : acc;
+        out[oo] = accumulate ? base[oo] + keep : keep;
+    }
+}
+
 inline int mode_lanes(int B) { return B < 8 ? B : 8; }
 
 }  // namespace
@@ -250,23 +334,14 @@ inline int mode_lanes(int B) { return B < 8 ? B : 8; }
 extern "C" {
 
 int soa_half_sweep(const float* blocks_c, const float* dinv_c, const float* rhs_c,
-                   const float* u, float* out, int color, int B, int C, int nh,
-                   int periodic, cudaStream_t stream) {
+                   const float* u, const float* base, float* out, int color, int B,
+                   int C, int nh, int periodic, int accumulate, cudaStream_t stream) {
     dim3 block(TC, mode_lanes(B));
     dim3 grid((C + TC - 1) / TC);
     size_t smem = (size_t)5 * B * TC * sizeof(float);
-    half_sweep_kernel<<<grid, block, smem, stream>>>(blocks_c, dinv_c, rhs_c, u,
-                                                     out, color, B, C, nh, periodic);
-    return (int)cudaGetLastError();
-}
-
-int soa_residual(const float* blocks, const float* rhs, const float* u, float* out,
-                 int B, int C, int nh, int periodic, cudaStream_t stream) {
-    dim3 block(TC, mode_lanes(B));
-    dim3 grid((C + TC - 1) / TC, 2);
-    size_t smem = (size_t)5 * B * TC * sizeof(float);
-    residual_kernel<<<grid, block, smem, stream>>>(blocks, rhs, u, out, B, C, nh,
-                                                   periodic);
+    half_sweep_kernel<<<grid, block, smem, stream>>>(blocks_c, dinv_c, rhs_c, u, base,
+                                                     out, color, B, C, nh, periodic,
+                                                     accumulate);
     return (int)cudaGetLastError();
 }
 
@@ -288,6 +363,31 @@ int soa_geo_transfer(const float* T4, const float* x, const float* base, float* 
     dim3 grid((n_out + TC - 1) / TC, 2);
     geo_transfer_kernel<<<grid, block, 0, stream>>>(T4, x, base, out, Bout, Bin,
                                                     njc, nic, restrict_, accumulate);
+    return (int)cudaGetLastError();
+}
+
+int soa_stencil_apply(const float* blocks, const float* x, const float* base,
+                      float* out, int Bs, int Bd, int C, int nh, int periodic,
+                      float sign, int accumulate, cudaStream_t stream) {
+    dim3 block(TC, mode_lanes(Bd));
+    dim3 grid((C + TC - 1) / TC, 2);
+    size_t smem = (size_t)5 * Bs * TC * sizeof(float);
+    stencil_apply_kernel<<<grid, block, smem, stream>>>(blocks, x, base, out, Bs, Bd,
+                                                        C, nh, periodic, sign,
+                                                        accumulate);
+    return (int)cudaGetLastError();
+}
+
+int soa_dg_half_sweep(const float* D_c, const float* dgd_c, const float* dgi_c,
+                      const float* rhs_c, const float* g, const float* p,
+                      const float* base, float* out, int color, int Bu, int Np, int C,
+                      int nh, int periodic, int accumulate, cudaStream_t stream) {
+    dim3 block(TC, mode_lanes(Np));
+    dim3 grid((C + TC - 1) / TC);
+    size_t smem = (size_t)(5 * Bu + Np) * TC * sizeof(float);
+    dg_half_sweep_kernel<<<grid, block, smem, stream>>>(D_c, dgd_c, dgi_c, rhs_c, g, p,
+                                                        base, out, color, Bu, Np, C, nh,
+                                                        periodic, accumulate);
     return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,8 @@ from dgtpu_torch.utils.logger import Logger
 
 
 class GridLevel:
-    def __init__(self, geometry, settings, vars, P_sol, sigma=None, device="cpu"):
+    def __init__(self, geometry, settings, vars, P_sol, sigma=None, gamma=None,
+                 device="cpu"):
         self.settings = settings
         self.logger = Logger(__name__, settings).logger
         self.device = torch.device(device)
@@ -30,11 +31,15 @@ class GridLevel:
         self.fully_periodic = geometry.fully_periodic_boundaries
         self.Ni, self.Nj, self.N = geometry.Ni, geometry.Nj, geometry.N
 
-        # DOF bookkeeping (grid.py:103-110); Poisson only in this port
+        # DOF bookkeeping (grid.py:103-110); a Stokes element carries u, v
+        # and p modes
         self.P_sol = dict(P_sol)
         self.N_sol = {v: self.P_sol[v] + 1 for v in self.vars}
         self.N_DOF_sol = {v: self.N_sol[v] ** 2 for v in self.vars}
-        self.N_DOF_sol_tot = self.N_DOF_sol["u"]
+        if self.vars == ["u"]:
+            self.N_DOF_sol_tot = self.N_DOF_sol["u"]
+        else:
+            self.N_DOF_sol_tot = 2 * self.N_DOF_sol["u"] + self.N_DOF_sol["p"]
         self.N_int = {
             v: getattr(getattr(settings.solution, v), "integration_polynomial_degree_factor")
                * self.P_sol[v] // 2 + 1
@@ -46,6 +51,7 @@ class GridLevel:
                           if settings.problem.SIP_penalty_parameter else
                           (self.P_sol["u"] + 1) ** 2
                           * settings.problem.SIP_penalty_parameter_multiplier)
+        self.gamma = gamma or settings.problem.velocity_penalty_parameter
 
         self.quad = QuadratureSet(self.N_grid, self.N_sol, self.N_int)
         self.X, self.Y = self._element_coords(geometry)
@@ -54,9 +60,13 @@ class GridLevel:
         self._gt = None
 
         # assembled-system slots
-        self.op = None          # StencilOperator
+        self.op = None          # StencilOperator (StokesGlobalOperator)
         self.rhs = None
         self.inv_mass = None    # (N, B, B) per-element inverse mass matrices
+        self.block_A = None     # Stokes global-order component stencils
+        self.block_D = None
+        self.block_G = None
+        self.Epsilon = None
 
         self.logger.debug(
             f"Initialized grid level: P_grid={self.P_grid}, P_sol={self.P_sol}, "
@@ -144,7 +154,8 @@ class CoarseGridLevel(GridLevel):
         g.x, g.y = self._nodes_from_elements(self._Xc, self._Yc, g.Ni, g.Nj,
                                              g.P_grid)
         super().__init__(g, settings, vars, dict(fine_level.P_sol),
-                         sigma=fine_level.sigma, device=device)
+                         sigma=fine_level.sigma, gamma=fine_level.gamma,
+                         device=device)
 
     @staticmethod
     def _nodes_from_elements(X, Y, Ni, Nj, p_grid):

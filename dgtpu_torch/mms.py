@@ -1,19 +1,24 @@
 """Manufactured solutions via torch autograd (port of ``dgtpu/mms.py``).
 
 The exact-solution strings from the paramfile are parsed into scalar
-functions over a namespace of torch functions, and the Poisson source
-``f = -nu * laplace(u)`` comes from automatic differentiation: the
-expressions are pointwise, so the gradient of their *sum* over a batch of
-points is each point's own derivative, and ``create_graph=True`` lets the
-first derivative be differentiated again for the Laplacian.
+functions over a namespace of torch functions, and the sources come from
+automatic differentiation:
 
-Only the Poisson parts are ported; Stokes (momentum + continuity sources,
-pressure mean, divergence check) is ROADMAP Queue 1 item 9.
+    f_mom_x = -nu * laplace(u) (+ dp/dx for Stokes)
+    f_cont  = du/dx + dv/dy    (must vanish: divergence-free check)
+
+The expressions are pointwise, so the gradient of their *sum* over a batch
+of points is each point's own derivative, and ``create_graph=True`` lets
+the first derivative be differentiated again for the Laplacian.  The exact
+pressure mean is a high-order Gauss-Legendre quadrature, as in dgtpu.
 """
 
 import math
 
+import numpy as np
 import torch
+
+from dgtpu_torch.basis import gauss_legendre
 
 _SAFE_FUNCS = {
     "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
@@ -73,6 +78,15 @@ def laplacian(f):
     return lap
 
 
+def partial(f, axis):
+    """x, y -> df/dx (axis 0) or df/dy (axis 1), pointwise."""
+    def d(x, y):
+        x = x.detach().requires_grad_(True)
+        y = y.detach().requires_grad_(True)
+        return _grad(f(x, y), (x, y)[axis])
+    return d
+
+
 def _vectorize(f, grad=False):
     """Pointwise application over float64 tensors (or arrays) of any shape;
     the result stays on the input's device."""
@@ -86,7 +100,8 @@ def _vectorize(f, grad=False):
 
 
 class ManufacturedSolution:
-    """Exact solution + autodiff source for one Poisson configuration.
+    """Exact solution + autodiff sources for one Poisson or Stokes
+    configuration.
 
     ``exact`` is a dict of expression strings per variable, ``nu`` the
     kinematic viscosity; optional ``lam`` is substituted as in the Kovasznay
@@ -94,17 +109,84 @@ class ManufacturedSolution:
     """
 
     def __init__(self, exact, problem, nu, lam_expr=None):
-        if problem != "Poisson":
+        if problem not in ("Poisson", "Stokes"):
             raise NotImplementedError(
-                f"manufactured solutions for {problem} are not ported yet "
-                "(ROADMAP Queue 1 item 9, Stokes)")
+                f"manufactured solutions for {problem}: possible equation(s) "
+                "are Poisson|Stokes")
         constants = {"nu": nu}
         if lam_expr is not None:
             lam_code = compile(str(lam_expr), "<lam>", "eval")
             constants["lam"] = float(eval(lam_code, {"__builtins__": {}},
                                           dict(_SAFE_FUNCS, nu=nu)))
+        self.problem = problem
         self.nu = nu
+        self.p_mean = 0.0
         self._u = parse_expression(exact.get("u"), constants)
-        lap_u = laplacian(self._u)
         self.u = _vectorize(self._u)
-        self.f_momentum = (_vectorize(lambda x, y: -nu * lap_u(x, y), grad=True),)
+        lap_u = laplacian(self._u)
+        if problem == "Poisson":
+            self.v = self.p_raw = self.f_continuity = None
+            self.f_momentum = (_vectorize(lambda x, y: -nu * lap_u(x, y),
+                                          grad=True),)
+            return
+        self._v = parse_expression(exact.get("v"), constants)
+        self._p = parse_expression(exact.get("p"), constants)
+        lap_v = laplacian(self._v)
+        px, py = partial(self._p, 0), partial(self._p, 1)
+        ux, vy = partial(self._u, 0), partial(self._v, 1)
+        self.v = _vectorize(self._v)
+        self.p_raw = _vectorize(self._p)
+        self.f_momentum = (
+            _vectorize(lambda x, y: -nu * lap_u(x, y) + px(x, y), grad=True),
+            _vectorize(lambda x, y: -nu * lap_v(x, y) + py(x, y), grad=True))
+        self.f_continuity = _vectorize(lambda x, y: ux(x, y) + vy(x, y),
+                                       grad=True)
+
+    def check_divergence_free(self, n_sample=64, tol=1e-10):
+        """Numeric analog of the reference's symbolic divergence check
+        (dgfem.py:425-429), at dgtpu's sample points."""
+        if self.f_continuity is None:
+            return True
+        rng = np.random.default_rng(0)
+        xs = rng.uniform(-0.9, 0.9, n_sample)
+        ys = rng.uniform(-0.9, 0.9, n_sample)
+        div = self.f_continuity(xs, ys).abs().max().item()
+        if div > tol:
+            raise ValueError(f"Manufactured solution is not divergence-free, "
+                             f"max|div u| = {div:.3e}")
+        return True
+
+    def p(self, x, y):
+        """Mean-shifted exact pressure (the reference subtracts exact_p_mean,
+        dgfem.py:443)."""
+        return self.p_raw(x, y) - self.p_mean
+
+    def compute_pressure_mean(self, geometry, circular, n_quad=64):
+        """Domain average of the exact pressure by Gauss-Legendre quadrature
+        on the rectangle's bounding box or the annulus (r dtheta dr weight),
+        as dgtpu computes it (the reference integrates symbolically,
+        dgfem.py:378-402)."""
+        if self.p_raw is None:
+            self.p_mean = 0.0
+            return 0.0
+        r, w = gauss_legendre(n_quad)
+        if circular:
+            rad = np.sqrt(geometry.x ** 2 + geometry.y ** 2)
+            r_min, r_max = float(np.min(rad)), float(np.max(rad))
+            rr = r_min + (r + 1) / 2 * (r_max - r_min)
+            tt = (r + 1) / 2 * (2 * np.pi)
+            R, T = np.meshgrid(rr, tt, indexing="ij")
+            W = np.outer(w, w) * (r_max - r_min) / 2 * np.pi * R
+            vals = self.p_raw(R * np.cos(T), R * np.sin(T)).numpy()
+            A = np.pi * (r_max ** 2 - r_min ** 2)
+        else:
+            x_min, x_max = float(np.min(geometry.x)), float(np.max(geometry.x))
+            y_min, y_max = float(np.min(geometry.y)), float(np.max(geometry.y))
+            xx = x_min + (r + 1) / 2 * (x_max - x_min)
+            yy = y_min + (r + 1) / 2 * (y_max - y_min)
+            X, Y = np.meshgrid(xx, yy, indexing="ij")
+            W = np.outer(w, w) * (x_max - x_min) * (y_max - y_min) / 4
+            vals = self.p_raw(X, Y).numpy()
+            A = (x_max - x_min) * (y_max - y_min)
+        self.p_mean = float(np.sum(vals * W) / A)
+        return self.p_mean

@@ -1,4 +1,5 @@
-"""Batched DG face kernels for the Poisson SIP terms (port of
+"""Batched DG face kernels: SIP flux / penalty / symmetrizing, and the Stokes
+continuity, pressure and velocity-penalty terms (port of
 ``dgtpu/models/faces.py``).
 
 The reference's three face branches (interior / left-boundary /
@@ -12,8 +13,7 @@ formula per term with per-face scalars:
     h_F      : mean sqrt(element area) of the present sides
 
 Each kernel returns ``(LL, LR, RL, RR)`` stacks of shape (F, B_test,
-B_trial).  The Stokes face terms (continuity, pressure, velocity penalty)
-are ROADMAP Queue 1 item 9.
+B_trial).
 """
 
 import torch
@@ -133,4 +133,125 @@ def sip_dirichlet_rhs(fd, nu, sigma, g_min, g_max, var="u"):
     rhs_min = rhs_min + nu * torch.einsum("fqi,fq,fq->fi", Gn_R, g_min, fd.wJ)
     rhs_max = torch.einsum("f,fqi,fq,fq->fi", pen, V_L, g_max, fd.wJ)
     rhs_max = rhs_max - nu * torch.einsum("fqi,fq,fq->fi", Gn_L, g_max, fd.wJ)
+    return rhs_min, rhs_max
+
+
+def continuity_surface(fd_p):
+    """Stokes continuity face jumps: int_F q [u . n] (face.py:79-113).
+
+    ``fd_p``: FaceData at the *pressure* quadrature.  Returns 4 stacks of
+    shape (F, Np, 2*Nu) with trial columns [u | v].
+    """
+    V_Lu, V_Ru = fd_p.trace("u")
+    V_Lp, V_Rp = fd_p.trace("p")
+    wJ = fd_p.wJ
+
+    def block(V_test_p, Vu_trial, n_trial, coef):
+        # res[f, k, i] = coef_f * sum_q wJ Vu[q,i] n_a[f,q] Vp[q,k]
+        cols = [torch.einsum("f,fq,fqi,fq,fqk->fki", coef, wJ, Vu_trial,
+                             n_trial[a], V_test_p) for a in range(2)]
+        return torch.cat(cols, dim=2)
+
+    n_L = (fd_p.mt_L["nx"], fd_p.mt_L["ny"])
+    n_R = (fd_p.mt_R["nx"], fd_p.mt_R["ny"])
+    LL = block(V_Lp, V_Lu, n_L, +fd_p.w_L)
+    LR = block(V_Lp, V_Ru, n_R, -fd_p.w_R)
+    RL = block(V_Rp, V_Lu, n_L, +fd_p.w_L)
+    RR = block(V_Rp, V_Ru, n_R, -fd_p.w_R)
+    return LL, LR, RL, RR
+
+
+def continuity_dirichlet_rhs(fd_p, g_min, g_max):
+    """Boundary data for the continuity jumps: -/+ int q (g . n)
+    (face.py:80-93).  ``g_min``/``g_max``: (g_u, g_v) at the present side's
+    p-quadrature trace points; returns (rhs_min, rhs_max), each (F, Np)."""
+    V_Lp, V_Rp = fd_p.trace("p")
+    wJ = fd_p.wJ
+    gn_min = g_min[0] * fd_p.mt_R["nx"] + g_min[1] * fd_p.mt_R["ny"]
+    gn_max = g_max[0] * fd_p.mt_L["nx"] + g_max[1] * fd_p.mt_L["ny"]
+    rhs_min = -torch.einsum("fqi,fq,fq->fi", V_Rp, gn_min, wJ)
+    rhs_max = +torch.einsum("fqi,fq,fq->fi", V_Lp, gn_max, wJ)
+    return rhs_min, rhs_max
+
+
+def pressure_surface(fd_u):
+    """Momentum pressure-flux term int_F {p} [psi . n] (face.py:282-320).
+
+    Returns (F, 2*Nu, Np) stacks with test rows [x; y].
+    """
+    V_Lu, V_Ru = fd_u.trace("u")
+    V_Lp, V_Rp = fd_u.trace("p")
+    wJ = fd_u.wJ
+    n_L = (fd_u.mt_L["nx"], fd_u.mt_L["ny"])
+    n_R = (fd_u.mt_R["nx"], fd_u.mt_R["ny"])
+
+    def block(V_test_u, Vp_trial, n_trial, coef):
+        rows = [torch.einsum("f,fq,fqi,fq,fqk->fki", coef, wJ, Vp_trial,
+                             n_trial[a], V_test_u) for a in range(2)]
+        return torch.cat(rows, dim=1)
+
+    LL = block(V_Lu, V_Lp, n_L, +fd_u.w_L)
+    LR = block(V_Lu, V_Rp, n_R, +fd_u.w_R)
+    RL = block(V_Ru, V_Lp, n_L, -fd_u.w_L)
+    RR = block(V_Ru, V_Rp, n_R, -fd_u.w_R)
+    return LL, LR, RL, RR
+
+
+def pressure_dirichlet_rhs(fd_u, gp_min, gp_max):
+    """Optional pressure Dirichlet data (include_pressure_BC, face.py:284-300)."""
+    V_Lu, V_Ru = fd_u.trace("u")
+    wJ = fd_u.wJ
+
+    def rhs(V, gp, n, sign):
+        parts = [sign * torch.einsum("fqi,fq->fi", V, gp * wJ * n[a])
+                 for a in range(2)]
+        return torch.cat(parts, dim=1)
+
+    rhs_min = rhs(V_Ru, gp_min, (fd_u.mt_R["nx"], fd_u.mt_R["ny"]), -1.0)
+    rhs_max = rhs(V_Lu, gp_max, (fd_u.mt_L["nx"], fd_u.mt_L["ny"]), +1.0)
+    return rhs_min, rhs_max
+
+
+def velocity_penalty_surface(fd_u, gamma):
+    """Grad-div face penalty gamma/h int_F (u.n)(psi.n) (face.py:322-372).
+
+    Returns (F, 2Nu, 2Nu) stacks: trial cols [u|v], test rows [x;y].
+    """
+    V_Lu, V_Ru = fd_u.trace("u")
+    wJ = fd_u.wJ
+    n_L = (fd_u.mt_L["nx"], fd_u.mt_L["ny"])
+    n_R = (fd_u.mt_R["nx"], fd_u.mt_R["ny"])
+
+    def block(V_test, V_trial, n_trial, coef):
+        # res[f, k + b*Nu, i + a*Nu] = coef * sum_q wJ V_trial[q,i] n_a n_b V_test[q,k]
+        rows = []
+        for b in range(2):
+            cols = [torch.einsum("f,fq,fqi,fq,fqk->fki", coef, wJ, V_trial,
+                                 n_trial[a] * n_trial[b], V_test)
+                    for a in range(2)]
+            rows.append(torch.cat(cols, dim=2))
+        return torch.cat(rows, dim=1)
+
+    pen_L = gamma / fd_u.h_F * fd_u.p_L
+    pen_R = gamma / fd_u.h_F * fd_u.p_R
+    LL = block(V_Lu, V_Lu, n_L, +pen_L)
+    LR = block(V_Lu, V_Ru, n_R, -pen_R)
+    RL = block(V_Ru, V_Lu, n_L, -pen_L)
+    RR = block(V_Ru, V_Ru, n_R, +pen_R)
+    return LL, LR, RL, RR
+
+
+def velocity_penalty_dirichlet_rhs(fd_u, gamma, g_min, g_max):
+    """Boundary data of the grad-div penalty (face.py:324-342)."""
+    V_Lu, V_Ru = fd_u.trace("u")
+    wJ = fd_u.wJ
+
+    def rhs(V, g, n, h):
+        gn = (g[0] * n[0] + g[1] * n[1]) * wJ
+        parts = [gamma / h[:, None] * torch.einsum("fqi,fq->fi", V, gn * n[a])
+                 for a in range(2)]
+        return torch.cat(parts, dim=1)
+
+    rhs_min = rhs(V_Ru, g_min, (fd_u.mt_R["nx"], fd_u.mt_R["ny"]), fd_u.h_F)
+    rhs_max = rhs(V_Lu, g_max, (fd_u.mt_L["nx"], fd_u.mt_L["ny"]), fd_u.h_F)
     return rhs_min, rhs_max

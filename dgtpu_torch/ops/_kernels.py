@@ -1,11 +1,13 @@
-"""Build, load and launch the CUDA kernels of ``csrc/soa_kernels.cu``.
+"""Build, load and launch the CUDA kernels of ``csrc/soa_kernels.cu``: K1
+half-sweep, K3 small GEMM, K4 geometric transfer and K5 stencil apply of
+both cycles, and K6, the Stokes pressure half-sweep.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (never at import: the CPU tests import
 every module), cached under ``build/dgtpu_torch/`` by the source's hash, and
 loaded with ``ctypes``.  Each launcher checks device, dtype, shape and
-contiguity, allocates its output with ``torch.empty``, launches on PyTorch's
-current stream and raises if the launch reports a CUDA error.
+contiguity, allocates its output with ``torch.empty``, launches on
+PyTorch's current stream and raises if the launch reports a CUDA error.
 """
 
 import ctypes
@@ -23,16 +25,21 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dgtpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> argument types (the last one is the stream)
 _SIGNATURES = {
-    "soa_half_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "soa_residual": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "soa_small_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "soa_geo_transfer": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "soa_half_sweep": [_P] * 6 + [_I] * 6 + [_P],
+    "soa_small_gemm": [_P] * 4 + [_I] * 5 + [_P],
+    "soa_geo_transfer": [_P] * 4 + [_I] * 6 + [_P],
+    "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    "soa_dg_half_sweep": [_P] * 8 + [_I] * 7 + [_P],
 }
-# K1/K2 stage 5*B*TC floats of shared memory per CTA (TC = 32 cells); the
-# launches stay under the 48 KB a kernel gets without an opt-in attribute.
-_MAX_SMEM_B = 48 * 1024 // (5 * 32 * 4)
+# K1/K5 stage 5*B*TC floats of shared memory per CTA (TC = 32 cells), K6
+# (5*Bu + Np)*TC; the launches stay under the 48 KB a kernel gets without an
+# opt-in attribute.
+_TC = 32
+_SMEM_FLOATS = 48 * 1024 // 4
+_MAX_SMEM_B = _SMEM_FLOATS // (5 * _TC)
 
 
 def _nvcc():
@@ -47,7 +54,7 @@ def _nvcc():
 
 
 def build():
-    """Compile the kernels (if this source is not built yet); returns the
+    """Compile the kernel source unless it is built already; returns the
     shared library's path."""
     with open(SOURCE, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -90,43 +97,31 @@ def _check(*tensors):
 
 def _launch(name, *args):
     lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    code = getattr(lib, name)(*args, stream)
+    code = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} "
                            f"({lib.soa_error_string(code).decode()})")
 
 
-def half_sweep(blocks, Dinv, rhs, u, color, nh, periodic):
+def _base_ptr(base):
+    return None if base is None else base.data_ptr()
+
+
+def half_sweep(blocks, Dinv, rhs, u, color, nh, periodic, base=None):
     """K1; see ``ops.soa.half_sweep``."""
-    _check(blocks, Dinv, rhs, u)
+    _check(blocks, Dinv, rhs, u, *(() if base is None else (base,)))
     _, _, B, _, C = blocks.shape
     if blocks.shape != (2, 5, B, B, C) or Dinv.shape != (2, B, B, C) \
-            or rhs.shape != (2, B, C) or u.shape != (2, B, C):
+            or rhs.shape != (2, B, C) or u.shape != (2, B, C) \
+            or (base is not None and base.shape != u.shape):
         raise ValueError("half_sweep: inconsistent SoA shapes")
     if B > _MAX_SMEM_B:
         raise ValueError(f"half_sweep: B={B} exceeds the kernel's shared-memory "
                          f"tile (B <= {_MAX_SMEM_B})")
     out = torch.empty_like(u)
     _launch("soa_half_sweep", blocks[color].data_ptr(), Dinv[color].data_ptr(),
-            rhs[color].data_ptr(), u.data_ptr(), out.data_ptr(), int(color),
-            B, C, int(nh), int(periodic))
-    return out
-
-
-def residual(blocks, rhs, u, nh, periodic):
-    """K2; see ``ops.soa.residual``."""
-    _check(blocks, rhs, u)
-    _, _, B, _, C = blocks.shape
-    if blocks.shape != (2, 5, B, B, C) or rhs.shape != (2, B, C) \
-            or u.shape != (2, B, C):
-        raise ValueError("residual: inconsistent SoA shapes")
-    if B > _MAX_SMEM_B:
-        raise ValueError(f"residual: B={B} exceeds the kernel's shared-memory "
-                         f"tile (B <= {_MAX_SMEM_B})")
-    out = torch.empty_like(u)
-    _launch("soa_residual", blocks.data_ptr(), rhs.data_ptr(), u.data_ptr(),
-            out.data_ptr(), B, C, int(nh), int(periodic))
+            rhs[color].data_ptr(), u.data_ptr(), _base_ptr(base), out.data_ptr(),
+            int(color), B, C, int(nh), int(periodic), int(base is not None))
     return out
 
 
@@ -140,9 +135,8 @@ def small_gemm(W, x, base=None):
     if base is not None and base.shape != (batch, M, N):
         raise ValueError("small_gemm: base shape mismatch")
     out = torch.empty((batch, M, N), dtype=x.dtype, device=x.device)
-    _launch("soa_small_gemm", W.data_ptr(), x.data_ptr(),
-            None if base is None else base.data_ptr(), out.data_ptr(),
-            M, K, N, batch, int(base is not None))
+    _launch("soa_small_gemm", W.data_ptr(), x.data_ptr(), _base_ptr(base),
+            out.data_ptr(), M, K, N, batch, int(base is not None))
     return out
 
 
@@ -159,7 +153,45 @@ def geo_transfer(T4, x, dims_c, restrict, base=None):
     if base is not None and (restrict or base.shape != (2, Bout, C_out)):
         raise ValueError("geo_transfer: base is the fine-level addend of a prolongation")
     out = torch.empty((2, Bout, C_out), dtype=x.dtype, device=x.device)
-    _launch("soa_geo_transfer", T4.data_ptr(), x.data_ptr(),
-            None if base is None else base.data_ptr(), out.data_ptr(),
-            Bout, Bin, njc, nic, int(restrict), int(base is not None))
+    _launch("soa_geo_transfer", T4.data_ptr(), x.data_ptr(), _base_ptr(base),
+            out.data_ptr(), Bout, Bin, njc, nic, int(restrict), int(base is not None))
+    return out
+
+
+def stencil_apply(blocks, x, nh, periodic, base=None, sign=1.0):
+    """K5; see ``ops.soa.stencil_apply``."""
+    _check(blocks, x, *(() if base is None else (base,)))
+    _, _, Bs, Bd, C = blocks.shape
+    if blocks.shape != (2, 5, Bs, Bd, C) or x.shape != (2, Bs, C):
+        raise ValueError(f"stencil_apply: blocks {tuple(blocks.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    if base is not None and base.shape != (2, Bd, C):
+        raise ValueError("stencil_apply: base shape mismatch")
+    if Bs > _MAX_SMEM_B:
+        raise ValueError(f"stencil_apply: B_src={Bs} exceeds the kernel's "
+                         f"shared-memory tile (B_src <= {_MAX_SMEM_B})")
+    out = torch.empty((2, Bd, C), dtype=x.dtype, device=x.device)
+    _launch("soa_stencil_apply", blocks.data_ptr(), x.data_ptr(), _base_ptr(base),
+            out.data_ptr(), Bs, Bd, C, int(nh), int(periodic), float(sign),
+            int(base is not None))
+    return out
+
+
+def dg_half_sweep(D, DG_diag, DG_Dinv, rhs, p, g, color, nh, periodic, base=None):
+    """K6; see ``ops.stokes_soa.dg_half_sweep``."""
+    _check(D, DG_diag, DG_Dinv, rhs, p, g, *(() if base is None else (base,)))
+    _, _, Bu, Np, C = D.shape
+    if D.shape != (2, 5, Bu, Np, C) or DG_diag.shape != (2, Np, Np, C) \
+            or DG_Dinv.shape != (2, Np, Np, C) or rhs.shape != (2, Np, C) \
+            or p.shape != (2, Np, C) or g.shape != (2, Bu, C) \
+            or (base is not None and base.shape != p.shape):
+        raise ValueError("dg_half_sweep: inconsistent SoA shapes")
+    if (5 * Bu + Np) * _TC > _SMEM_FLOATS:
+        raise ValueError(f"dg_half_sweep: Bu={Bu}, Np={Np} exceed the kernel's "
+                         "shared-memory tile")
+    out = torch.empty_like(p)
+    _launch("soa_dg_half_sweep", D[color].data_ptr(), DG_diag[color].data_ptr(),
+            DG_Dinv[color].data_ptr(), rhs[color].data_ptr(), g.data_ptr(),
+            p.data_ptr(), _base_ptr(base), out.data_ptr(), int(color), Bu, Np, C,
+            int(nh), int(periodic), int(base is not None))
     return out

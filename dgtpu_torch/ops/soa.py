@@ -19,11 +19,14 @@ phase functions, each a hand-written CUDA kernel for CUDA tensors
 (``csrc/soa_kernels.cu`` via ``ops/_kernels.py``) and its plain torch version
 for CPU tensors:
 
-    half_sweep    K1  one red-black half-sweep        (_soa_smooth body)
-    residual      K2  r = rhs - A u, both colors       (_soa_residual)
-    small_gemm    K3  out (+)= W x                     (polynomial R/P, u += P e,
-                                                         dense coarse inverse)
-    geo_transfer  K4  2x2 agglomeration R / P          (geometric R/P)
+    half_sweep     K1  one red-black half-sweep       (_soa_smooth body)
+    stencil_apply  K5  base + sign A x, both colors;  (_soa_residual with
+                       rectangular blocks              base = rhs, sign = -1)
+    small_gemm     K3  out (+)= W x                    (polynomial R/P, u += P e,
+                                                        dense coarse inverse)
+    geo_transfer   K4  2x2 agglomeration R / P         (geometric R/P)
+
+The Stokes cycle (``ops/stokes_soa.py``) launches the same four and K6.
 
 A CUDA tensor always goes to the kernel; each wrapper counts its launches
 in ``launches``.  ``SoAVCycle(reference=True)`` calls the plain versions on
@@ -97,17 +100,18 @@ def _off(blk, o, color, lv):
     return acc
 
 
-def half_sweep_plain(lv, rhs, u, color):
+def half_sweep_plain(lv, rhs, u, color, base=None):
     o = u[1 - color]
     new = _mac(lv.Dinv[color], rhs[color] - _off(lv.blocks[color], o, color, lv))
-    return torch.stack([new, o] if color == 0 else [o, new])
+    out = torch.stack([new, o] if color == 0 else [o, new])
+    return out if base is None else base + out
 
 
-def residual_plain(lv, rhs, u):
-    out = [rhs[c] - (_mac(lv.blocks[c, 0], u[c])
-                     + _off(lv.blocks[c], u[1 - c], c, lv))
-           for c in (0, 1)]
-    return torch.stack(out)
+def stencil_apply_plain(lv, blk, x, base=None, sign=1.0):
+    y = torch.stack([_mac(blk[c, 0], x[c]) + _off(blk[c], x[1 - c], c, lv)
+                     for c in (0, 1)])
+    y = y if sign == 1.0 else sign * y
+    return y if base is None else base + y
 
 
 def small_gemm_plain(W, x, base=None):
@@ -154,23 +158,27 @@ def geo_transfer_plain(T4, x, dims_c, restrict, base=None):
 # the wrappers: the CUDA kernel for CUDA tensors, the plain version otherwise
 # ---------------------------------------------------------------------------
 
-def half_sweep(lv, rhs, u, color):
+def half_sweep(lv, rhs, u, color, base=None):
     """K1: ``u[color] <- Dinv_c (rhs_c - sum_s A_c[s] nbr_s(u[1-color]))``;
-    returns a new (2, B, C) with the other color unchanged."""
+    returns a new (2, B, C) with the other color unchanged, plus ``base``
+    (2, B, C) when given."""
     if not u.is_cuda:
-        return half_sweep_plain(lv, rhs, u, color)
+        return half_sweep_plain(lv, rhs, u, color, base)
     out = _kernels.half_sweep(lv.blocks, lv.Dinv, rhs, u, color, lv.nh,
-                              lv.periodic)
+                              lv.periodic, base)
     half_sweep.launches += 1
     return out
 
 
-def residual(lv, rhs, u):
-    """K2: ``rhs - A u`` for both colors."""
-    if not u.is_cuda:
-        return residual_plain(lv, rhs, u)
-    out = _kernels.residual(lv.blocks, rhs, u, lv.nh, lv.periodic)
-    residual.launches += 1
+def stencil_apply(lv, blk, x, base=None, sign=1.0):
+    """K5: ``base + sign * (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))``
+    for both colors; ``blk`` (2, 5, B_src, B_dst, C) is a stencil on ``lv``'s
+    lattice, ``x`` (2, B_src, C), ``base`` (2, B_dst, C) or None.  The
+    residual ``rhs - A u`` is ``stencil_apply(lv, lv.blocks, u, rhs, -1.0)``."""
+    if not x.is_cuda:
+        return stencil_apply_plain(lv, blk, x, base, sign)
+    out = _kernels.stencil_apply(blk, x, lv.nh, lv.periodic, base, sign)
+    stencil_apply.launches += 1
     return out
 
 
@@ -194,8 +202,8 @@ def geo_transfer(T4, x, dims_c, restrict, base=None):
     return out
 
 
-KERNELS = (half_sweep, residual, small_gemm, geo_transfer)
-PLAIN = {half_sweep: half_sweep_plain, residual: residual_plain,
+KERNELS = (half_sweep, stencil_apply, small_gemm, geo_transfer)
+PLAIN = {half_sweep: half_sweep_plain, stencil_apply: stencil_apply_plain,
          small_gemm: small_gemm_plain, geo_transfer: geo_transfer_plain}
 
 
@@ -246,10 +254,10 @@ class SoAVCycle:
             self._cfg[t] = (int(node.pre_smoother.iterations),
                             int(node.post_smoother.iterations))
         if reference:
-            self._half_sweep, self._residual, self._gemm, self._geo = (
+            self._half_sweep, self._stencil, self._gemm, self._geo = (
                 PLAIN[k] for k in KERNELS)
         else:
-            self._half_sweep, self._residual, self._gemm, self._geo = KERNELS
+            self._half_sweep, self._stencil, self._gemm, self._geo = KERNELS
 
         self.levels = [self._pack_level(op, nj, ni)
                        for op, (nj, ni) in zip(ops, self.dims)]
@@ -362,7 +370,8 @@ class SoAVCycle:
             return self._coarse_solve(rhs, u)
         pre, post = self._cfg[self.types[k - 1]]
         u = self._smooth(k, rhs, u, 2 * pre)
-        r = self._residual(self.levels[k], rhs, u)
+        lv = self.levels[k]
+        r = self._stencil(lv, lv.blocks, u, base=rhs, sign=-1.0)
         rc = self._restrict(k - 1, r)
         ec = self._cycle(k - 1, rc, torch.zeros_like(rc), mode=mode)
         if mode in ("W", "F") and k - 1 > 0:

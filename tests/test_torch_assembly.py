@@ -138,7 +138,7 @@ def test_parse_expression_guards():
     with pytest.raises(ValueError):
         parse_expression("__import__('os')")
     with pytest.raises(NotImplementedError):
-        ManufacturedSolution({"u": "x"}, "Stokes", 1.0)
+        ManufacturedSolution({"u": "x"}, "Navier-Stokes", 1.0)
 
 
 @pytest.mark.parametrize("kind, kw", [

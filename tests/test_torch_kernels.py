@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (dgtpu_torch/csrc/soa_kernels.cu) against their
-plain torch versions, and the port's import hygiene.
+"""The port's CUDA kernels (dgtpu_torch/csrc/soa_kernels.cu: K1, K3, K4,
+K5 and K6) against their plain torch versions, and the port's import
+hygiene.
 
 The kernels have no CPU mode: the tests marked ``cuda`` skip without a
 card and run on one with ``python -m pytest tests/test_torch_kernels.py``.
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from dgtpu_torch.ops import _kernels, soa
+from dgtpu_torch.ops import stokes_soa as ss
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +36,8 @@ def cuda():
 
 def test_import_leaves_jax_out():
     code = ("import sys, dgtpu_torch, dgtpu_torch.api, dgtpu_torch.__main__, "
-            "dgtpu_torch.convert, dgtpu_torch.ops.soa; "
+            "dgtpu_torch.convert, dgtpu_torch.ops.soa, dgtpu_torch.ops.stokes_soa, "
+            "dgtpu_torch.models.stokes; "
             "assert 'jax' not in sys.modules and 'dgtpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    env={**os.environ, "PYTHONPATH": REPO}, timeout=120)
@@ -58,9 +61,11 @@ def test_sources_import_no_jax():
 
 
 def test_entry_points_match_bindings():
-    """Every ctypes signature names an extern "C" function of the source
-    with the same number of arguments."""
+    """Every ctypes signature names an extern "C" function of the kernel
+    source with the same number of arguments, and the source exports no
+    other entry point."""
     src = open(_kernels.SOURCE).read()
+    assert set(re.findall(r"^int (soa_\w+)\(", src, re.M)) == set(_kernels._SIGNATURES)
     for name, argtypes in _kernels._SIGNATURES.items():
         m = re.search(rf"\bint {name}\(([^)]*)\)", src)
         assert m, name
@@ -73,7 +78,10 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.small_gemm(torch.zeros(4, 4), x)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.residual(torch.zeros(2, 5, 4, 4, 8), x, x, 2, False)
+        _kernels.half_sweep(torch.zeros(2, 5, 4, 4, 8), torch.zeros(2, 4, 4, 8),
+                            x, x, 0, 2, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.stencil_apply(torch.zeros(2, 5, 4, 4, 8), x, 2, False)
 
 
 def _rand(rng, *shape, device="cpu"):
@@ -94,7 +102,7 @@ def _level(rng, B, nj, ni, periodic, device):
 
 def _close(kern, args):
     got = kern(*args)
-    ref = soa.PLAIN[kern](*args)
+    ref = {**soa.PLAIN, **ss.PLAIN}[kern](*args)
     torch.cuda.synchronize()
     return float((got - ref).abs().max() / ref.abs().max())
 
@@ -111,7 +119,9 @@ def test_half_sweep_and_residual_kernels(cuda, B, nj, ni, periodic):
     rhs, u = (_rand(rng, 2, B, nj * ni // 2, device=cuda) for _ in range(2))
     for color in (0, 1):
         assert _close(soa.half_sweep, (lv, rhs, u, color)) < REL_TOL
-    assert _close(soa.residual, (lv, rhs, u)) < REL_TOL
+        assert _close(soa.half_sweep, (lv, rhs, u, color, rhs)) < REL_TOL
+    # the residual rhs - A u
+    assert _close(soa.stencil_apply, (lv, lv.blocks, u, rhs, -1.0)) < REL_TOL
 
 
 @pytest.mark.cuda
@@ -167,3 +177,66 @@ def test_cycle_and_solve_on_the_card(cuda, tmp_path, monkeypatch):
     dg.solve()
     assert dg.solve_residual < 1e-10
     assert all(k.launches > 0 for k in soa.KERNELS)
+
+
+def _stokes_level(rng, Bu, Np, nj, ni, periodic, device):
+    nh = ni // 2
+    C = nj * nh
+    lanes_j, lanes_ip = np.repeat(np.arange(nj), nh), np.tile(np.arange(nh), nj)
+    masks = np.stack([lanes_j % 2 == 0, lanes_ip == 0, lanes_ip == nh - 1])
+    return ss.StokesSoALevel(
+        _rand(rng, 2, 5, Bu, Bu, C, device=device), _rand(rng, 2, 5, Np, Bu, C, device=device),
+        _rand(rng, 2, 5, Bu, Np, C, device=device), _rand(rng, 2, Bu, Bu, C, device=device),
+        _rand(rng, 2, Np, Np, C, device=device), _rand(rng, 2, Np, Np, C, device=device),
+        torch.as_tensor(masks[:, None, :], dtype=torch.float32, device=device),
+        nj, ni, periodic)
+
+
+# (2Nu, Np, Nj, Ni): the p2/p1 and p1/p0 levels of the Stokes hierarchies
+STOKES_SHAPES = [(18, 4, 4, 4), (8, 1, 8, 8), (18, 4, 32, 32), (8, 1, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("Bu, Np, nj, ni", STOKES_SHAPES)
+def test_stencil_apply_and_dg_half_sweep_kernels(cuda, Bu, Np, nj, ni, periodic):
+    rng = np.random.default_rng(0)
+    lv = _stokes_level(rng, Bu, Np, nj, ni, periodic, cuda)
+    C = nj * ni // 2
+    for blk, b_src, b_dst in ((lv.A, Bu, Bu), (lv.G, Np, Bu), (lv.D, Bu, Np)):
+        x = _rand(rng, 2, b_src, C, device=cuda)
+        assert _close(soa.stencil_apply, (lv, blk, x)) < REL_TOL
+        base = _rand(rng, 2, b_dst, C, device=cuda)
+        assert _close(soa.stencil_apply, (lv, blk, x, base, -1.0)) < REL_TOL
+    rhs, p = (_rand(rng, 2, Np, C, device=cuda) for _ in range(2))
+    g = _rand(rng, 2, Bu, C, device=cuda)
+    for color in (0, 1):
+        assert _close(ss.dg_half_sweep, (lv, rhs, p, g, color)) < REL_TOL
+        assert _close(ss.dg_half_sweep, (lv, rhs, p, g, color, rhs)) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_stokes_cycle_and_solve_on_the_card(cuda, tmp_path, monkeypatch):
+    """The 8x8 Stokes hierarchy: one kernel W-cycle vs the plain cycle on
+    the card (bar 5e-3, long dependent float32 chains), then the mixed route
+    through the kernels to 1e-10."""
+    import chip_smoke
+    import dgtpu_torch.api as tapi
+    from dgtpu_torch.settings import Settings
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    dg = tapi.DGFEM(device="cuda", settings=Settings(chip_smoke.stokes_params(8)),
+                    solve_multigrid=True)
+
+    def cycle(**kw):
+        return ss.SoAStokesVCycle(dg.levels, dg.transfers, dg.transfer_types,
+                                  dg.settings, **kw)
+
+    rhs = dg.levels[-1].rhs
+    u_k = cycle()(rhs, torch.zeros_like(rhs))
+    u_p = cycle(reference=True)(rhs, torch.zeros_like(rhs))
+    assert float((u_k - u_p).abs().max() / u_p.abs().max()) < 5e-3
+    soa.reset_launch_counts()
+    ss.reset_launch_counts()
+    dg.solve()
+    assert dg.solve_residual < 1e-10
+    assert all(k.launches > 0 for k in ss.CYCLE_KERNELS)

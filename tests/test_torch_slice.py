@@ -99,18 +99,36 @@ def test_cli_writes_summary(tmp_path, monkeypatch):
     assert "### grid=Rectangle_4X4_nPoly2" in summary
     assert f"L2 error={dg.L2_error_u}" in summary
     assert os.path.exists(dg.solution_visualization_filepath + ".vts")
-    hist = os.listdir(tmp_path / "postprocessing" / "multigrid")
+    hist = os.listdir(tmp_path / "postprocessing" / "dgtpu_torch" / "multigrid")
     assert len(hist) == 1 and hist[0].endswith("_rectangle.npy")
+
+
+def test_residual_history_leaves_dgtpus_directory(tmp_path, monkeypatch):
+    """The port writes its residual histories under its own directory, so a
+    port run beside dgtpu never adds a file to dgtpu's
+    ``postprocessing/multigrid`` (which dgtpu's own tests read)."""
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    dgtpu_dir = tmp_path / "postprocessing" / "multigrid"
+    dgtpu_dir.mkdir(parents=True)
+    (dgtpu_dir / "residuals_Poisson_4X4_nPoly2_polynomial_rectangle.npy").write_bytes(b"")
+    before = sorted(os.listdir(dgtpu_dir))
+    main(["-m", "--precision", "mixed", "--device", "cpu", "--silent",
+          "--paramfile", _paramfile(tmp_path, **{"visualization.export": False})])
+    assert sorted(os.listdir(dgtpu_dir)) == before
+    port_dir = tmp_path / "postprocessing" / "dgtpu_torch" / "multigrid"
+    assert [f.startswith("residuals_Poisson_4X4") for f in os.listdir(port_dir)] == [True]
 
 
 @pytest.mark.parametrize("override, item", [
     ({"performance.precision": "full"}, "item 8"),
     ({"performance.n_shards": 2}, "item 12"),
-    ({"problem.type": "Stokes"}, "item 9"),
+    ({"problem.type": "Stokes", "solution.ordering": "local"}, "item 9"),
     ({"solver.multigrid.geometric coarsening.use FVM": True}, "item 11"),
     ({"caching.enabled": True}, "item 5"),
     ({"problem.check eigenvalues": True}, "item 11"),
-    ({"problem.orthonormal on physical element": True}, "item 9"),
+    ({"problem.orthonormal on physical element": True}, "item 14"),
+    # global-order Stokes with the paramfile's block-GS smoothers
+    ({"problem.type": "Stokes", "solution.ordering": "global"}, "item 9"),
 ])
 def test_unported_branches_raise(tmp_path, monkeypatch, override, item):
     monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
