@@ -15,8 +15,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
   4. one whole cycle on the 8x8 p=5 hierarchy, kernel path against plain path;
   5. the CLI route ``python -m dgtpu_torch -m --precision mixed`` on the
      default paramfile, with the launch count of every kernel;
-  6. the same route on Rectangle_64X64_nPoly5 (factors 16,8,4,2, FMG seed);
-  7. marginal cycle times (CUDA events, slope between k and 8k cycles);
+  6. the same route on Rectangle_64X64_nPoly5 (factors 16,8,4,2, FMG seed):
+     the hierarchy outgrows the card's L2 (the budget read from the card),
+     so it runs the streamed hybrid (K7 on the finest level), held to a
+     solve of the same hierarchy through the SoA cycle;
+  7. marginal cycle times of the SoA cycle (CUDA events, slope between k
+     and 8k cycles), 8x8 and 64x64;
   8. each kernel of the Stokes cycle (K1, K3, K4, K5 and K6 pressure DG
      half-sweep) against its plain version at every shape of the 8x8
      p_u=2/p_p=1 Stokes hierarchy, and K1/K5/K6 on a synthetic O-grid;
@@ -28,17 +32,34 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      kernel, then each kernel against its plain version at every shape of
      the 32x32 hierarchy;
  12. marginal Stokes W-cycle times and launches per cycle, and per-call
-     times of K5 and K6 beside their plain versions.
-The last lines are the kernels' JSON record, the nvidia-smi line and
+     times of K5 and K6 beside their plain versions;
+ 13. the streamed kernels against their plain versions: K7 (float32 and
+     bfloat16 blocks) and K5 with bfloat16 blocks at the 64x64 p=5 finest
+     shapes, K6 (the streamed DG pass) and K5 at the 32x32 Stokes finest
+     shapes, K7 on a synthetic O-grid, K7 grids of 1 and 64 CTAs;
+ 14. the 64x64 route with ``performance.block storage: bfloat16``;
+ 15. the 32x32 Stokes route through the streamed Stokes hybrid (budget: the
+     SoA bytes of all levels but the two finest), FMG seed, plain and
+     GMRES(16) refinement;
+ 16. marginal cycle times and launches per cycle, SoA cycle against the
+     hybrids (64x64 Poisson float32 and bfloat16 storage, 32x32 Stokes),
+     and per-call times of K7 and K5 with bfloat16 blocks beside their
+     plain versions.
+The last lines are the kernels' JSON record (per kernel: launches on the
+main paths, worst error against the plain version, its time, the plain
+version's, the bound from bytes and operations, and a PyTorch call's time
+where one computes the same function), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA or without
 the rest of the repository.
 
 ``--profile`` runs ``torch.profiler`` over the cycles of the four
-configurations (kernel and plain paths: device-busy time, device ops per
-cycle, the top device ops) and over single calls of the kernels at the
-finest levels' shapes (device us per call, bytes moved, GB/s).
+configurations and of the 64x64 streamed hybrids (kernel and plain paths:
+device-busy time, device ops per cycle, the top device ops) and over single
+calls of the SoA cycles' kernels at the finest levels' shapes (device us
+per call, bytes moved, GB/s).
 """
 
+import contextlib
 import copy
 import json
 import os
@@ -79,6 +100,11 @@ DGTPU_STOKES_L2 = {
 }
 STOKES_CYCLE_REL_TOL = 5e-3   # whole f32 W-cycle, kernels vs plain (dgtpu's
                               # bound between its f32 fused and XLA cycles)
+# the bound of a kernel: the larger of its bytes over the memory rate and its
+# float32 operations over the rate outside the tensor cores (NVIDIA H100 SXM
+# data sheet, at a 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def card_line():
@@ -260,24 +286,38 @@ def synthetic_ogrid_level(rng, Bu=18, Np=4, nj=4, ni=4):
 
 def plain_version(kern):
     """The plain torch version of a kernel wrapper."""
-    from dgtpu_torch.ops import soa
+    from dgtpu_torch.ops import soa, stream
     from dgtpu_torch.ops import stokes_soa as ss
-    return {**soa.PLAIN, **ss.PLAIN}[kern]
+    from dgtpu_torch.ops import stokes_stream as sst
+    return {**soa.PLAIN, **ss.PLAIN, **stream.PLAIN,
+            sst.dg_pass: sst.dg_pass_plain}[kern]
+
+
+def launched(kern):
+    """The kernel wrapper whose kernel ``kern`` launches (the streamed DG
+    pass is K6)."""
+    from dgtpu_torch.ops import stokes_soa as ss
+    from dgtpu_torch.ops import stokes_stream as sst
+    return ss.dg_half_sweep if kern is sst.dg_pass else kern
 
 
 def check_kernels(cases, label, worst):
     """Each kernel's output against its plain version; records the worst
-    absolute error per kernel in ``worst``."""
+    (absolute, relative) error per kernel in ``worst``.  A case is (kernel,
+    args) or (kernel, args, keyword args of the kernel only)."""
     import torch
-    for kern, args in cases:
-        got = kern(*args)
+    for kern, args, *kw in cases:
+        got = kern(*args, **(kw[0] if kw else {}))
         ref = plain_version(kern)(*args)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         rel = err / max(float(ref.abs().max()), 1e-30)
-        worst[kern] = max(worst.get(kern, 0.0), err)
-        print(f"[{label}] {kern.__name__:13s} shape {tuple(got.shape)}: "
-              f"max abs err {err:.3e}, rel {rel:.3e}", flush=True)
+        key = launched(kern)
+        worst[key] = tuple(max(a, b) for a, b in zip(worst.get(key, (0.0, 0.0)),
+                                                      (err, rel)))
+        print(f"[{label}] {kern.__name__:16s} shape {tuple(got.shape)}"
+              f"{' ' + str(kw[0]) if kw else ''}: max abs err {err:.3e}, rel {rel:.3e}",
+              flush=True)
         if not rel < KERNEL_REL_TOL:
             raise AssertionError(f"{kern.__name__} disagrees with its plain "
                                  f"version: rel {rel:.3e}")
@@ -328,8 +368,8 @@ def marginal_ms(cyc, rhs, k=5):
 
 def stokes_phases(card, rng, worst):
     """Phases 8-12: the Stokes route.  Returns the launch counts of the 8x8
-    CLI route and of the 32x32 route, and {kernel: (ms, plain ms)} of K5 and
-    K6 at the 8x8 finest shapes."""
+    CLI route and of the 32x32 route, {kernel: (args, ms, plain ms)} of K5
+    and K6 at the 8x8 finest shapes, and the 32x32 DGFEM."""
     import torch
     import yaml
     from dgtpu_torch.__main__ import main as cli
@@ -374,9 +414,7 @@ def stokes_phases(card, rng, worst):
           f"{dg8.solve_seconds:.3f} s; launches {launches}", flush=True)
     if not dg8.solve_residual < RES_TOL:
         raise AssertionError("the 8x8 Stokes solve did not reach 1e-10")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the Stokes route: {missing}")
+    not_launched(launches, list(launches), "the 8x8 Stokes route")
 
     # -- 11: the Stokes route at 32x32 ---------------------------------------
     t0 = time.perf_counter()
@@ -400,9 +438,7 @@ def stokes_phases(card, rng, worst):
         raise AssertionError("the 32x32 Stokes solve did not reach 1e-10")
     if not (ratios["u"] >= 8 and ratios["v"] >= 8 and ratios["p"] >= 4):
         raise AssertionError(f"32x32 errors not far enough below 8x8: {ratios}")
-    missing = [n for n, c in launches32.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the 32x32 route: {missing}")
+    not_launched(launches32, list(launches32), "the 32x32 Stokes route")
     # C = 128 and 512 on the finest levels: launches of several CTAs
     check_kernels(stokes_kernel_cases(stokes_cycle_of(dg32), rng), "11 Stokes 32x32",
                   worst)
@@ -417,9 +453,11 @@ def stokes_phases(card, rng, worst):
         per_cycle = {kk.__name__: kk.launches for kk in ss.CYCLE_KERNELS}
         kern_ms = marginal_ms(cyc, rhs, k)
         plain_ms = marginal_ms(stokes_cycle_of(dg, reference=True), rhs, k)
+        size, b_ms = cycle_bound(dg)
         print(f"[12] {name} Stokes marginal W-cycle time: kernels {kern_ms:.4f} ms, "
-              f"plain torch {plain_ms:.4f} ms; kernel launches per cycle "
-              f"{sum(per_cycle.values())} {per_cycle} ({card})", flush=True)
+              f"plain torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({size / 1e6:.3f} MB "
+              f"of operands); kernel launches per cycle {sum(per_cycle.values())} "
+              f"{per_cycle} ({card})", flush=True)
     stokes_ms = {}
     for name, dg in (("8x8", flagship), ("32x32", dg32)):
         lv = stokes_cycle_of(dg).levels[-1]
@@ -431,16 +469,106 @@ def stokes_phases(card, rng, worst):
             plain_ms = cuda_ms(lambda: plain_version(kern)(*args), 200)
             print(f"[12] {kern.__name__} at {name} Stokes finest shapes: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({card})", flush=True)
-            stokes_ms.setdefault(kern, (ms, plain_ms))   # the 8x8 times
-    return launches, launches32, stokes_ms
+            stokes_ms.setdefault(kern, (args, ms, plain_ms))   # the 8x8 times
+    return launches, launches32, stokes_ms, dg32
+
+
+def all_kernels():
+    """Every kernel wrapper of the port: K1, K5, K3, K4, K6, K7."""
+    from dgtpu_torch.ops import stokes_soa as ss
+    from dgtpu_torch.ops import stream
+    return ss.CYCLE_KERNELS + stream.KERNELS
 
 
 def reset_counts():
     """Set the launch count of every kernel to 0."""
-    from dgtpu_torch.ops import soa
+    from dgtpu_torch.ops import soa, stream
     from dgtpu_torch.ops import stokes_soa as ss
     soa.reset_launch_counts()
     ss.reset_launch_counts()
+    stream.reset_launch_counts()
+
+
+def counts():
+    return {k.__name__: k.launches for k in all_kernels()}
+
+
+# the kernels the Poisson hybrid route launches: the SoA subtree's four and K7
+POISSON_HYBRID_KERNELS = ("half_sweep", "stencil_apply", "small_gemm", "geo_transfer",
+                          "multi_half_sweep")
+
+
+def not_launched(launches, names, path):
+    """Raise if a kernel of ``names`` has no launch in ``launches``."""
+    missing = [n for n in names if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by {path}: {missing}")
+
+
+@contextlib.contextmanager
+def stream_budget(budget):
+    """The API's streaming budget set to ``budget`` bytes (None: the SoA
+    cycle at any size) inside the block."""
+    from dgtpu_torch import api
+    saved = api.stream_budget
+    api.stream_budget = lambda device: budget
+    try:
+        yield
+    finally:
+        api.stream_budget = saved
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def work(kern, args):
+    """(bytes, float32 operations) that the function of one call must move
+    and do: each input it reads once, each output written once."""
+    from dgtpu_torch.ops import soa, stream
+    from dgtpu_torch.ops import stokes_soa as ss
+    from dgtpu_torch.ops import stokes_stream as sst
+    f32 = 4
+    if kern is sst.dg_pass:                 # K6 on the streamed level's view
+        kern, args = ss.dg_half_sweep, (args[0].lv, *args[1:])
+    if kern is soa.half_sweep:
+        lv, rhs, u, color, *base = args
+        B, C = rhs.shape[1:]
+        return (nbytes(lv.blocks[color, 1:], lv.Dinv[color], rhs[color], u, *base)
+                + nbytes(u), 2 * 5 * B * B * C)
+    if kern is stream.multi_half_sweep:
+        lv, blocks, Dinv, rhs, u, n_half, *base = args
+        B, C = rhs.shape[1:]
+        macs = n_half * 5 * B * B * C - (4 * B * B * C if u is None else 0)
+        return nbytes(blocks[:, 1:], Dinv, rhs, u, *base) + nbytes(rhs), 2 * macs
+    if kern is soa.stencil_apply:
+        lv, blk, x, *base = args[:4]
+        return nbytes(blk, x, *base[:1]) + 2 * blk.shape[3] * blk.shape[4] * f32, \
+            2 * blk.numel()
+    if kern is soa.small_gemm:
+        W, x, *base = args
+        (M, K), (batch, _, N) = W.shape, x.shape
+        return nbytes(W, x, *base) + batch * M * N * f32, 2 * M * K * N * batch
+    if kern is soa.geo_transfer:
+        T4, x, (njc, nic), restrict, *base = args
+        _, b_out, b_in = T4.shape
+        c_out = njc * nic // 2 * (1 if restrict else 4)
+        return nbytes(T4, x, *base) + 2 * b_out * c_out * f32, \
+            2 * 2 * c_out * b_out * b_in * (4 if restrict else 1)
+    if kern is ss.dg_half_sweep:
+        lv, rhs, p, g, c, *base = args
+        _, _, Bu, Np, C = lv.D.shape
+        return (nbytes(lv.D[c], lv.DG_diag[c], lv.DG_Dinv[c], rhs[c], g, p, *base)
+                + nbytes(p), 2 * (5 * Bu * Np + 2 * Np * Np) * C)
+    raise KeyError(kern)
+
+
+def bound(kern, args):
+    """(least ms the card could take for one call, "bytes" or
+    "operations")."""
+    size, ops = work(kern, args)
+    t_bytes, t_ops = size / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def profile(card):
@@ -487,6 +615,10 @@ def profile(card):
         ("Stokes 32x32", lambda: DGFEM(device="cuda", settings=Settings(stokes_params(32)),
                                        solve_multigrid=True), stokes_cycle_of, 3),
     ]
+    l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
+    for storage in ("float32", "bfloat16"):
+        configs.append((f"Poisson 64x64 p5 hybrid {storage}", configs[1][1],
+                        lambda dg, s=storage, **kw: hybrid_of(dg, l2_bytes, s, **kw), 20))
     rand = _rand(np.random.default_rng(1))
     mb = lambda *ts: sum(t.numel() for t in ts) * 4 / 1e6   # noqa: E731
     for name, make, cycle, n in configs:
@@ -507,6 +639,8 @@ def profile(card):
                   f"{[(k[:40], v[0] / calls, round(v[1] / calls, 2)) for k, v in top]} "
                   f"({card})", flush=True)
         cyc = cycle(dg)
+        if not hasattr(cyc, "levels"):       # the hybrids: cycles only
+            continue
         lv = cyc.levels[-1]
         if cycle is cycle_of:
             B, C = lv.blocks.shape[2], lv.blocks.shape[4]
@@ -541,6 +675,96 @@ def profile(card):
                   f"({n_ev} of 200 launches recorded), events {ev_us:.2f} us, "
                   f"plain {plain_us:.2f} us, {size:.3f} MB, "
                   f"{size * 1e-3 / (us / n_ev * 1e-6):.1f} GB/s ({card})", flush=True)
+
+
+def hybrid_of(dg, budget, storage, reference=False):
+    import torch
+    from dgtpu_torch.ops.stream import StreamedVCycle
+    dims = [(l.Nj, l.Ni) for l in dg.levels]
+    return StreamedVCycle([l.op for l in dg.levels], dg.transfers, dg.transfer_types,
+                          dg.settings, dims, budget, dtype=torch.float32,
+                          device="cuda", block_storage=storage, reference=reference)
+
+
+def stokes_hybrid_of(dg, budget):
+    import torch
+    from dgtpu_torch.ops.stokes_stream import StreamedStokesVCycle
+    return StreamedStokesVCycle(dg.levels, dg.transfers, dg.transfer_types, dg.settings,
+                                budget, dtype=torch.float32, device="cuda")
+
+
+def cycle_bound(dg):
+    """(operand bytes of the SoA cycle over ``dg``'s hierarchy, the least ms
+    one cycle could take reading each of them once at the card's memory
+    rate)."""
+    from dgtpu_torch.ops.soa import SoAVCycle
+    from dgtpu_torch.ops.stokes_soa import SoAStokesVCycle
+    coarse = dg.settings.solver.multigrid.coarse_grid_solver in ("direct", "amg")
+    if "p" in dg.vars:
+        size = SoAStokesVCycle.device_bytes(dg.levels, dg.transfers, with_coarse=coarse)
+    else:
+        size = SoAVCycle.device_bytes([l.op for l in dg.levels],
+                                      [(l.Nj, l.Ni) for l in dg.levels], dg.transfers,
+                                      with_coarse=coarse)
+    return size, size / HBM_BYTES_PER_S * 1e3
+
+
+def cycles_in_turns(cycles, rhs, k, label, card):
+    """Print each cycle's kernel launches per cycle and its marginal ms,
+    measured twice in turns (a, b, c, c, b, a): the host's noise drifts
+    within a run."""
+    import torch
+    times = {name: [] for name in cycles}
+    launches = {}
+    for name in list(cycles) + list(cycles)[::-1]:
+        reset_counts()
+        cycles[name](rhs, torch.zeros_like(rhs))
+        torch.cuda.synchronize()
+        launches[name] = {n: c for n, c in counts().items() if c}
+        times[name].append(marginal_ms(cycles[name], rhs, k))
+    for name, ms in times.items():
+        print(f"[16] {label} {name}: {ms[0]:.4f}, {ms[1]:.4f} ms marginal, kernel "
+              f"launches per cycle {sum(launches[name].values())} {launches[name]} "
+              f"({card})", flush=True)
+
+
+def sweep_cases(lv, blocks, Dinv, rand):
+    """K7 cases on one level: n_half 2 and 8, from u and from zero with a
+    base, on the default grid and on one CTA."""
+    from dgtpu_torch.ops import stream
+    B, C = Dinv.shape[1], Dinv.shape[3]
+    r, u, base = rand(2, B, C), rand(2, B, C), rand(2, B, C)
+    k7 = stream.multi_half_sweep
+    return [(k7, (lv, blocks, Dinv, r, u, 8)),
+            (k7, (lv, blocks, Dinv, r, None, 8, base)),
+            (k7, (lv, blocks, Dinv, r, u, 2)),
+            (k7, (lv, blocks, Dinv, r, u, 8), {"ctas": 1})]
+
+
+def streamed_stokes_cases(sl, rand):
+    """K6 as the streamed DG pass and K5 on the streamed operands of one
+    Stokes level."""
+    from dgtpu_torch.ops import soa
+    from dgtpu_torch.ops import stokes_stream as sst
+    lv = sl.lv
+    Bu, Np, C = lv.A.shape[2], lv.G.shape[2], lv.A.shape[4]
+    rhs, p, base, g, uv = (rand(2, Np, C), rand(2, Np, C), rand(2, Np, C),
+                           rand(2, Bu, C), rand(2, Bu, C))
+    return ([(sst.dg_pass, (sl, rhs, p, g, c, b)) for c in (0, 1) for b in (None, base)]
+            + [(soa.stencil_apply, (lv, lv.A, uv, rand(2, Bu, C), -1.0)),
+               (soa.stencil_apply, (lv, lv.G, p)),
+               (soa.stencil_apply, (lv, lv.D, uv, rand(2, Np, C), -1.0))])
+
+
+def synthetic_soa_level(rng, B, nj, ni):
+    """A Poisson SoA level with random operands on an O-grid lattice
+    (periodic in i), scaled so that repeated half-sweeps stay bounded."""
+    import torch
+    from dgtpu_torch.ops.soa import SoALevel, lane_masks
+    rand = _rand(rng)
+    C = nj * ni // 2
+    return SoALevel(rand(2, 5, B, B, C) * (0.25 / B), rand(2, B, B, C) / B ** 0.5,
+                    lane_masks(nj, ni, torch.float32, "cuda"), nj, ni, True)
 
 
 def check_stokes_errors(dg, n):
@@ -610,7 +834,7 @@ def main():
         raise AssertionError(f"kernel cycle disagrees with the plain cycle: {rel:.3e}")
 
     # -- 5: the CLI route on the default paramfile ---------------------------
-    soa.reset_launch_counts()
+    reset_counts()
     dg8 = cli(["-m", "--precision", "mixed", "--silent"])
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in soa.KERNELS}
@@ -624,39 +848,64 @@ def main():
         raise AssertionError("the 8x8 solve did not reach 1e-10")
     if not l2_rel < L2_REL_TOL:
         raise AssertionError("8x8 L2(u) differs from dgtpu's")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
+    not_launched(launches, list(launches), "the 8x8 p5 route")
 
-    # -- 6: the same route at 64x64 ------------------------------------------
+    # -- 6: the same route at 64x64: the streamed hybrid --------------------
+    from dgtpu_torch import api
+    l2_bytes = api.stream_budget(torch.device("cuda"))
     t0 = time.perf_counter()
     dg64 = hierarchy(settings_for("Rectangle_64X64_nPoly5.xyz", 5,
                                   factors="16,8,4,2", fmg=True))
     setup_s = time.perf_counter() - t0
-    soa.reset_launch_counts()
+    reset_counts()
     dg64.solve()
     torch.cuda.synchronize()
-    launches64 = {k.__name__: k.launches for k in soa.KERNELS}
-    print(f"[6] 64x64 p5 route (factors 16,8,4,2, FMG): residual "
-          f"{dg64.solve_residual:.3e} (normalized), {dg64.residual:.3e} (L2), "
-          f"{dg64.outer_rounds} outer rounds, L1(u) {dg64.L1_error_u:.6e}, "
-          f"L2(u) {dg64.L2_error_u:.6e} ({dg8.L2_error_u / dg64.L2_error_u:.3g}x "
-          f"below 8x8), setup {setup_s:.2f} s, solve {dg64.solve_seconds:.3f} s; "
-          f"launches {launches64}", flush=True)
-    if not dg64.solve_residual < RES_TOL:
+    launches64 = counts()
+    hyb = {k: getattr(dg64, k) for k in ("cycle_kind", "cut", "solve_residual",
+                                         "residual", "outer_rounds", "L1_error_u",
+                                         "L2_error_u", "solve_seconds", "u_nodal")}
+    with stream_budget(None):
+        dg64.solve()
+    torch.cuda.synchronize()
+    l2_soa = dg64.L2_error_u
+    rel_soa = abs(hyb["L2_error_u"] - l2_soa) / l2_soa
+    u_soa = dg64.u_nodal
+    sol_soa = float(abs(hyb["u_nodal"] - u_soa).max() / abs(u_soa).max())
+    print(f"[6] 64x64 p5 route (factors 16,8,4,2, FMG): L2 budget from the card "
+          f"{l2_bytes} bytes (torch.cuda.get_device_properties().L2_cache_size), "
+          f"{hyb['cycle_kind']} cut at {hyb['cut']} of {len(dg64.levels)} levels; "
+          f"residual {hyb['solve_residual']:.3e} (normalized), {hyb['residual']:.3e} (L2), "
+          f"{hyb['outer_rounds']} outer rounds, L1(u) {hyb['L1_error_u']:.6e}, "
+          f"L2(u) {hyb['L2_error_u']:.9e} ({dg8.L2_error_u / hyb['L2_error_u']:.3g}x "
+          f"below 8x8; SoA cycle's {l2_soa:.9e}, rel {rel_soa:.2e}; nodal u against "
+          f"the SoA route's {sol_soa:.2e} relative), setup "
+          f"{setup_s:.2f} s, solve {hyb['solve_seconds']:.3f} s (SoA "
+          f"{dg64.solve_seconds:.3f} s); launches {launches64}", flush=True)
+    if hyb["cycle_kind"] != "streamed hybrid":
+        raise AssertionError("the 64x64 route did not run the streamed hybrid")
+    not_launched(launches64, POISSON_HYBRID_KERNELS, "the 64x64 hybrid route")
+    if not hyb["solve_residual"] < RES_TOL:
         raise AssertionError("the 64x64 solve did not reach 1e-10")
-    if not dg64.L2_error_u * 100 <= dg8.L2_error_u:
+    if not hyb["L2_error_u"] * 100 <= dg8.L2_error_u:
         raise AssertionError("64x64 L2(u) is not 100x below 8x8")
+    # at 64x64 p=5 the MMS error (~5e-12) is at the solve's own roundoff, so
+    # two 1e-10 solves differ in L2(u) by ~1e-4 relative; the solutions are
+    # held to each other instead
+    if not sol_soa < RES_TOL:
+        raise AssertionError(f"the hybrid's 64x64 solution differs from the SoA "
+                             f"route's: {sol_soa:.3e}")
 
-    # -- 7: timings ----------------------------------------------------------
+    # -- 7: timings of the SoA cycle -----------------------------------------
     for name, dg in (("8x8 p5", flagship), ("64x64 p5", dg64)):
         rhs = dg.levels[-1].rhs.to(torch.float32)
         kern_ms = marginal_ms(cycle_of(dg), rhs)
         plain_ms = marginal_ms(cycle_of(dg, reference=True), rhs)
-        print(f"[7] {name} marginal cycle time: kernels {kern_ms:.4f} ms, plain "
-              f"torch {plain_ms:.4f} ms ({card})", flush=True)
+        size, b_ms = cycle_bound(dg)
+        print(f"[7] {name} marginal SoA cycle time: kernels {kern_ms:.4f} ms, plain "
+              f"torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({size / 1e6:.3f} MB of "
+              f"operands) ({card})", flush=True)
 
-    poisson_ms = {}
+    timed = {}          # kernel -> (args, ms, plain ms) of the recorded case
     timing_case = {}
     for kern, args in kernel_cases(cyc8, np.random.default_rng(0)):
         timing_case[kern] = args   # the last case: the finest level's
@@ -664,25 +913,158 @@ def main():
         args = timing_case[kern]
         ms = cuda_ms(lambda: kern(*args), 200)
         plain_ms = cuda_ms(lambda: plain_version(kern)(*args), 200)
-        poisson_ms[kern] = (ms, plain_ms)
+        timed[kern] = (args, ms, plain_ms)
         print(f"[7] {kern.__name__} at 8x8 p5 shapes: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms ({card})", flush=True)
 
-    stokes_launches, stokes_launches32, stokes_ms = stokes_phases(card, rng, worst)
+    stokes_launches, stokes_launches32, stokes_ms, dg32 = stokes_phases(card, rng, worst)
+    timed.update(stokes_ms)
 
+    # -- 13: the streamed kernels against their plain versions ---------------
+    from dgtpu_torch.ops import stokes_stream as sst
+    from dgtpu_torch.ops import stream
+    hyb32, hyb16 = (hybrid_of(dg64, l2_bytes, s) for s in ("float32", "bfloat16"))
+    top = len(dg64.levels) - 1
+    rand = _rand(rng)
+    cases = []
+    for h in (hyb32, hyb16):
+        s = h.streams[top]
+        cases += sweep_cases(s.lv, *s.sweep, rand)
+        r, u = rand(2, s.lv.blocks.shape[2], s.C), rand(2, s.lv.blocks.shape[2], s.C)
+        cases += [(soa.stencil_apply, (s.lv, s.res.to(torch.bfloat16), u, r, -1.0)),
+                  (soa.stencil_apply, (s.lv, s.res.to(torch.bfloat16), u))]
+    check_kernels(cases, "13 64x64 p5 finest", worst)
+    n_ctas = min(hyb32.streams[top].C // 32, _kernels.coresident_ctas(36, False))
+    print(f"[13] K7 grids: {n_ctas} CTAs by default at 64x64 p5 (co-resident "
+          f"limit {_kernels.coresident_ctas(36, False)} float32, "
+          f"{_kernels.coresident_ctas(36, True)} bfloat16), 1 CTA when asked",
+          flush=True)
+    if n_ctas < 64:
+        raise AssertionError(f"K7 ran on {n_ctas} CTAs at 64x64 p5")
+    sl = sst.StreamedStokesLevel(dg32.levels[-1])
+    check_kernels(streamed_stokes_cases(sl, rand), "13 Stokes 32x32 streamed", worst)
+    per = synthetic_soa_level(rng, 16, 8, 8)
+    bf = torch.cat([per.Dinv[:, None], per.blocks[:, 1:]], dim=1).to(torch.bfloat16)
+    check_kernels(sweep_cases(per, per.blocks, per.Dinv, rand)
+                  + sweep_cases(per, bf, bf[:, 0], rand), "13 synthetic O-grid", worst)
+
+    # -- 14: the 64x64 route with bfloat16 sweep blocks ----------------------
+    dg64.settings.performance.block_storage = "bfloat16"
+    reset_counts()
+    dg64.solve()
+    torch.cuda.synchronize()
+    launches64_bf16 = counts()
+    dg64.settings.performance.block_storage = "float32"
+    rel16 = abs(dg64.L2_error_u - hyb["L2_error_u"]) / hyb["L2_error_u"]
+    sol16 = float(abs(dg64.u_nodal - hyb["u_nodal"]).max() / abs(hyb["u_nodal"]).max())
+    print(f"[14] 64x64 p5 route, block storage bfloat16: {dg64.cycle_kind}, residual "
+          f"{dg64.solve_residual:.3e} (normalized), {dg64.outer_rounds} outer rounds "
+          f"(float32 storage {hyb['outer_rounds']}), L2(u) {dg64.L2_error_u:.9e} (rel "
+          f"to [6] {rel16:.2e}; nodal u against [6] {sol16:.2e} relative), solve "
+          f"{dg64.solve_seconds:.3f} s; launches {launches64_bf16}", flush=True)
+    if dg64.cycle_kind != "streamed hybrid":
+        raise AssertionError("the bfloat16 64x64 route did not run the hybrid")
+    not_launched(launches64_bf16, POISSON_HYBRID_KERNELS, "the bfloat16 64x64 route")
+    if not dg64.solve_residual < RES_TOL or not sol16 < RES_TOL:
+        raise AssertionError("the bfloat16-storage 64x64 solve missed its bars")
+
+    # -- 15: the 32x32 Stokes route through the streamed Stokes hybrid -------
+    n32 = len(dg32.levels)
+    budget32 = ss.SoAStokesVCycle.device_bytes(dg32.levels[:n32 - 2],
+                                               dg32.transfers[:n32 - 3])
+    dg32.settings.solver.multigrid.full_multigrid = True
+    reset_counts()
+    with stream_budget(budget32):
+        dg32.solve()
+    torch.cuda.synchronize()
+    launches32h = counts()
+    dg32.settings.solver.multigrid.full_multigrid = False
+    rel_l2 = check_stokes_errors(dg32, 32)
+    print(f"[15] 32x32 Stokes route, budget {budget32} bytes: {dg32.cycle_kind} cut at "
+          f"{dg32.cut} of {n32} levels, FMG seed; residual {dg32.solve_residual:.3e} "
+          f"(normalized), inner {dg32.inner}, outer rounds {dg32.rounds}, L2(u) "
+          f"{dg32.L2_error_u:.9e}, L2(v) {dg32.L2_error_v:.9e}, L2(p) "
+          f"{dg32.L2_error_p:.9e} (rel to dgtpu {rel_l2}), solve "
+          f"{dg32.solve_seconds:.3f} s; launches {launches32h}", flush=True)
+    if dg32.cycle_kind != "streamed Stokes hybrid" or dg32.cut != n32 - 2:
+        raise AssertionError("the 32x32 Stokes route did not stream two levels")
+    if not dg32.solve_residual < RES_TOL:
+        raise AssertionError("the 32x32 Stokes hybrid solve did not reach 1e-10")
+    not_launched(launches32h, list(launches32h), "the 32x32 Stokes hybrid route")
+
+    # -- 16: SoA cycle against the hybrids; K7 and bfloat16 K5 per call ------
+    for name, h in (("float32", hyb32), ("bfloat16", hyb16)):
+        size = h.bytes_per_cycle()
+        print(f"[16] 64x64 p5 hybrid {name}: {size / 1e6:.3f} MB of operators per "
+              f"V-cycle (bytes_per_cycle), {size / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+              f"card's memory rate", flush=True)
+    cycles_in_turns({"SoA": cycle_of(dg64), "hybrid float32": hyb32,
+                     "hybrid bfloat16": hyb16},
+                    dg64.levels[-1].rhs.to(torch.float32), 5, "64x64 p5 V-cycle", card)
+    cycles_in_turns({"SoA": stokes_cycle_of(dg32),
+                     "hybrid": stokes_hybrid_of(dg32, budget32)},
+                    dg32.levels[-1].rhs.to(torch.float32), 2, "32x32 Stokes W-cycle", card)
+    s32, s16 = hyb32.streams[top], hyb16.streams[top]
+    B, C = s32.lv.blocks.shape[2], s32.C
+    r, u = rand(2, B, C), rand(2, B, C)
+    pre = 4 * hyb32._cfg[hyb32.types[top - 1]][0]
+    per_call = {
+        "K7 float32, pre-smoother from u": (stream.multi_half_sweep,
+                                           (s32.lv, *s32.sweep, r, u, pre)),
+        "K7 bfloat16, defect form": (stream.multi_half_sweep,
+                                     (s16.lv, *s16.sweep, r, None, pre, u)),
+        "K5 bfloat16 residual": (soa.stencil_apply,
+                                 (s32.lv, s32.res.to(torch.bfloat16), u, r, -1.0)),
+        "K5 float32 residual": (soa.stencil_apply, (s32.lv, s32.res, u, r, -1.0)),
+    }
+    Bu, Np, Cs = sl.lv.A.shape[2], sl.lv.G.shape[2], sl.lv.A.shape[4]
+    uv, p, f, g = rand(2, Bu, Cs), rand(2, Np, Cs), rand(2, Np, Cs), rand(2, Bu, Cs)
+    stokes_calls = {
+        "K5 matvec A uv": (soa.stencil_apply, (sl.lv, sl.lv.A, uv)),
+        "K6 DG pass color 1 + base": (sst.dg_pass, (sl, f, p, g, 1, p)),
+    }
+    for shapes, calls in (("64x64 p5", per_call), ("32x32 Stokes", stokes_calls)):
+        for name, (kern, args) in calls.items():
+            ms = cuda_ms(lambda: kern(*args), 50)
+            plain_ms = cuda_ms(lambda: plain_version(kern)(*args), 10)
+            b_ms, b_by = bound(kern, args)
+            print(f"[16] {name} at {shapes} streamed finest shapes: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
+            if kern is stream.multi_half_sweep:
+                timed.setdefault(kern, (args, ms, plain_ms))
+
+    paths = {"poisson_8x8": launches, "poisson_64x64_hybrid": launches64,
+             "poisson_64x64_hybrid_bf16": launches64_bf16,
+             "stokes_8x8": stokes_launches, "stokes_32x32": stokes_launches32,
+             "stokes_32x32_hybrid": launches32h}
+    replaces = {
+        soa.half_sweep: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739",
+        soa.stencil_apply: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739, "
+                           "dgtpu/ops/pallas_stream.py:376, dgtpu/ops/pallas_stream.py:435",
+        soa.small_gemm: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739",
+        soa.geo_transfer: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739",
+        ss.dg_half_sweep: "dgtpu/ops/pallas_stokes.py:739, dgtpu/ops/pallas_stream.py:496",
+        stream.multi_half_sweep: "dgtpu/ops/pallas_stream.py:315",
+    }
     record = []
-    for kern in ss.CYCLE_KERNELS:
-        replaces = ("dgtpu/ops/pallas_stokes.py:739" if kern in ss.KERNELS
-                    else "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739")
-        by_path = {"poisson_8x8": launches.get(kern.__name__, 0),
-                   "stokes_8x8": stokes_launches.get(kern.__name__, 0),
-                   "stokes_32x32": stokes_launches32.get(kern.__name__, 0)}
-        ms, plain_ms = stokes_ms.get(kern, poisson_ms.get(kern))
+    for kern in all_kernels():
+        by_path = {p: c.get(kern.__name__, 0) for p, c in paths.items()}
+        args, ms, plain_ms = timed[kern]
+        b_ms, b_by = bound(kern, args)
+        library_ms = None
+        if kern is soa.small_gemm:
+            W, x = args[:2]
+            library_ms = cuda_ms(lambda: torch.matmul(W, x), 200)
         record.append({"name": kern.__name__, "route": "cuda",
                        "source": os.path.relpath(_kernels.SOURCE, REPO),
-                       "replaces": replaces, "launches": sum(by_path.values()),
-                       "launches_by_path": by_path, "max_abs_err": worst[kern],
-                       "ms": ms, "plain_ms": plain_ms})
+                       "replaces": replaces[kern], "launches": sum(by_path.values()),
+                       "launches_by_path": by_path, "max_abs_err": worst[kern][0],
+                       "max_rel_err": worst[kern][1],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": library_ms})
+        if record[-1]["launches"] == 0:
+            raise AssertionError(f"{kern.__name__} was launched by no main path")
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -33,6 +33,8 @@ from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        reorder_global_to_local)
 from dgtpu_torch.ops.soa import SoAVCycle
 from dgtpu_torch.ops.stokes_soa import _DGS, SoAStokesVCycle
+from dgtpu_torch.ops.stokes_stream import StreamedStokesVCycle
+from dgtpu_torch.ops.stream import StreamedVCycle
 from dgtpu_torch.ops.transfer import make_transfer
 from dgtpu_torch.settings import Settings, load_params
 from dgtpu_torch.solvers.refinement import make_refined_solver
@@ -90,6 +92,16 @@ def _unsupported(settings, method):
         return "visualization plots / ParaView", \
             "Queue 1 item 13 (visualization.py)"
     return None
+
+
+def stream_budget(device):
+    """Device bytes the SoA cycle's hierarchy may take before the finest
+    levels stream: the card's L2 cache (dgtpu's counterpart is its VMEM
+    budget, ``dgtpu/api.py:475-484``).  None off the card: the CPU route stays
+    SoA, as dgtpu's does off the TPU."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).L2_cache_size
 
 
 class DGFEM:
@@ -310,12 +322,16 @@ class DGFEM:
         return self._postprocess(u_modal)
 
     def _solve_multigrid_mixed(self, finest):
-        """Mixed-precision multigrid: float32 SoA cycles (the CUDA kernels on
-        a GPU) inside float64 defect correction, optionally seeded by the
-        FMG guess (``solver.multigrid.full_multigrid``).  When the plain
-        refinement stalls (deep Stokes hierarchies push the stand-alone
-        cycle's contraction past 1), the Stokes route retries with
-        GMRES(16)-wrapped cycles, as dgtpu does (``api.py:557-578``)."""
+        """Mixed-precision multigrid: float32 cycles (the CUDA kernels on a
+        GPU) inside float64 defect correction, optionally seeded by the FMG
+        guess (``solver.multigrid.full_multigrid``).  The cycle is dgtpu's
+        four-way choice (``api.py:489-518``): the SoA cycle while its
+        hierarchy's device bytes fit ``stream_budget`` (the card's L2),
+        else the streamed hybrid, for Poisson and for Stokes.  When the plain
+        refinement stalls and the cycle has a matvec (the Stokes cycles:
+        deep hierarchies push the stand-alone contraction past 1), the
+        refinement retries with GMRES(16)-wrapped cycles (``api.py:557-578``).
+        The route and the cut are left in ``cycle_kind`` and ``cut``."""
         s = self.settings
         mg = s.solver.multigrid
         fmg_on = bool(getattr(mg, "full_multigrid", False))
@@ -327,17 +343,48 @@ class DGFEM:
                 "an odd Ni on some level: dgtpu runs the rolled-layout cycle "
                 "there, which is not ported yet (ROADMAP Queue 1 item 8)")
         stokes = "p" in self.vars
+        ops = [l.op for l in self.levels]
+        coarse = mg.coarse_grid_solver in ("direct", "amg")
+        budget = stream_budget(self.device)
         if stokes:
-            cycle = SoAStokesVCycle(self.levels, self.transfers,
-                                    self.transfer_types, s, dtype=torch.float32,
-                                    device=self.device)
+            held = SoAStokesVCycle.device_bytes(self.levels, self.transfers,
+                                                with_coarse=coarse)
         else:
-            cycle = SoAVCycle([l.op for l in self.levels], self.transfers,
-                              self.transfer_types, s, dims, dtype=torch.float32,
-                              device=self.device)
+            held = SoAVCycle.device_bytes(ops, dims, self.transfers, with_coarse=coarse)
+        big = budget is not None and held > budget
+        common = dict(dtype=torch.float32, device=self.device)
+        try:
+            if stokes and big:
+                cycle = StreamedStokesVCycle(self.levels, self.transfers,
+                                             self.transfer_types, s, budget, **common)
+                kind = "streamed Stokes hybrid"
+            elif stokes:
+                cycle = SoAStokesVCycle(self.levels, self.transfers,
+                                        self.transfer_types, s, **common)
+                kind = "Stokes SoA"
+            elif big:
+                cycle = StreamedVCycle(ops, self.transfers, self.transfer_types, s,
+                                       dims, budget, **common)
+                kind = "streamed hybrid"
+            else:
+                cycle = SoAVCycle(ops, self.transfers, self.transfer_types, s, dims,
+                                  **common)
+                kind = "SoA"
+        except (ValueError, NotImplementedError) as e:
+            if stokes:
+                raise NotImplementedError(
+                    f"mixed precision: the Stokes cycle is unavailable ({e}); dgtpu "
+                    "runs full precision here, not ported yet (ROADMAP Queue 1 "
+                    "item 8)") from e
+            raise NotImplementedError(
+                f"mixed precision: the SoA cycles are unavailable ({e}); dgtpu "
+                "falls back to the rolled XLA cycle here, not ported yet (ROADMAP "
+                "Queue 1 item 8, Queue 2 item 7)") from e
+        self.cycle_kind, self.cut = kind, getattr(cycle, "cut", None)
+        self.logger.info(f"inner cycle: {kind}, device bytes {held} against the "
+                         f"budget {budget}, cut {self.cut}")
         rhs = finest.rhs
         u0 = torch.zeros_like(rhs)
-        kind = "Stokes SoA" if stokes else "SoA"
         if fmg_on:
             # the FMG pass's finest-level cycle is the same cycle the
             # refinement runs
@@ -352,7 +399,7 @@ class DGFEM:
         self.logger.info(
             f"mixed-precision multigrid ({kind} inner cycle): {n} outer "
             f"refinement rounds x 6 f32 cycles, residual {res:.3e}")
-        if not res < tol and stokes:
+        if not res < tol and hasattr(cycle, "build_matvec"):
             self.logger.warning(
                 f"mixed-precision refinement stalled at {res:.3e}; retrying "
                 "with f32 GMRES-wrapped inner cycles")

@@ -1,27 +1,39 @@
 // Hopper kernels for the SoA (cells-in-lanes) multigrid cycles.
 //
-// They replace the two Pallas TPU kernels of dgtpu's mixed-precision routes:
+// They replace the Pallas TPU kernels of dgtpu's mixed-precision routes:
 // SoAVCycle.build (Poisson; dgtpu/ops/pallas_soa.py:556-592, pallas_call at
-// :574) and SoAStokesVCycle.build (Stokes distributive GS;
-// dgtpu/ops/pallas_stokes.py:716-759, pallas_call at :739).  Each TPU kernel
-// keeps the whole hierarchy in VMEM and runs a cycle in one launch.  One H100
-// SM has 227 KB of shared memory and even the 8x8 p=5 hierarchy is ~2 MB, so
-// here a cycle is split into phase kernels that read their operands from
-// device memory; the host-side recursions in dgtpu_torch/ops/soa.py
-// (SoAVCycle._cycle) and dgtpu_torch/ops/stokes_soa.py
-// (SoAStokesVCycle._cycle) launch them in order on PyTorch's current stream:
+// :574), SoAStokesVCycle.build (Stokes distributive GS;
+// dgtpu/ops/pallas_stokes.py:716-759, pallas_call at :739) and the four
+// methods of StreamedLevel, the streamed hybrids' per-level kernels
+// (dgtpu/ops/pallas_stream.py: half_sweeps :315, residual :376, matvec :435,
+// matvec_color :496).  Each fused TPU kernel keeps the whole hierarchy in
+// VMEM and runs a cycle in one launch.  One H100 SM has 227 KB of shared
+// memory and even the 8x8 p=5 hierarchy is ~2 MB, so here a cycle is split
+// into phase kernels that read their operands from device memory; the
+// host-side recursions in dgtpu_torch/ops/soa.py (SoAVCycle._cycle),
+// ops/stokes_soa.py (SoAStokesVCycle._cycle), ops/stream.py
+// (StreamedVCycle._cycle) and ops/stokes_stream.py
+// (StreamedStokesVCycle._cycle) launch them in order on PyTorch's current
+// stream:
 //
-//   K1 half_sweep     one red-black block-GS half-sweep (_soa_smooth body;
-//                     the Stokes _bgs_A on the momentum blocks)
-//   K3 small_gemm     polynomial R/P, u += P e, the dense coarse inverse
-//   K4 geo_transfer   2x2 geometric agglomeration R/P
-//   K5 stencil_apply  base + sign (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))
-//                     with rectangular blocks: the Poisson residual
-//                     (_soa_residual, base = rhs, sign = -1), every stencil
-//                     matvec of the DGS sweep, the saddle residual, and
-//                     SoAStokesVCycle.build_matvec
-//   K6 dg_half_sweep  one color of the Stokes pressure pass (_bgs_dg,
-//                     pallas_stokes.py:382-390) given g = G p from K5
+//   K1 half_sweep       one red-black block-GS half-sweep (_soa_smooth body;
+//                       the Stokes _bgs_A on the momentum blocks)
+//   K3 small_gemm       polynomial R/P, u += P e, the dense coarse inverse
+//   K4 geo_transfer     2x2 geometric agglomeration R/P
+//   K5 stencil_apply    base + sign (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))
+//                       with rectangular float32 or bfloat16 blocks: the
+//                       Poisson residual (_soa_residual and
+//                       StreamedLevel.residual, base = rhs, sign = -1), every
+//                       stencil matvec of the DGS sweep, the saddle residual,
+//                       StreamedLevel.matvec and both build_matvec
+//   K6 dg_half_sweep    one color of the Stokes pressure pass (_bgs_dg,
+//                       pallas_stokes.py:382-390) given g = G p from K5; in
+//                       the streamed hybrid it is the whole composition
+//                       matvec_color(D) + the two DG-diagonal MACs
+//                       (pallas_stokes_stream.py:109-113)
+//   K7 multi_half_sweep all n half-sweeps of one smoother application
+//                       (StreamedLevel.half_sweeps) in one cooperative launch,
+//                       float32 or bfloat16 blocks
 //
 // Layout (the TPU kernels'): a color-pair vector is (2, B, C) with C =
 // Nj * Ni/2 cells per color in the contiguous axis; operator blocks per color
@@ -32,20 +44,38 @@
 // What bounds them on the card: at 8x8 (C = 32 on the finest level) a kernel
 // is one or two CTAs and a cycle is ~90 (Poisson p5) to ~800 (Stokes
 // W-cycle) launches, so the host's launch rate bounds the cycle; at 64x64 p5
-// (C = 2048) K1 and K5 stream the finest level's blocks (~42 MB per
-// half-sweep), so device-memory bytes bound them.  Fusing phases, CUDA graphs
-// over the launch sequence and a persistent cycle kernel are later work.
+// (C = 2048) K1, K5 and K7 stream the finest level's blocks (53 MB per
+// float32 half-sweep, 26.5 MB in bfloat16), so device-memory bytes bound
+// them.  K7 exists for the second case: it runs a whole smoother
+// application in one launch, and with bfloat16 blocks it halves the bytes.
 //
 // Every entry point is extern "C" (bound with ctypes), takes raw device
 // pointers the caller allocated, launches on the given stream without
-// synchronising, and returns cudaGetLastError() as an int.  ``accumulate``
-// selects ``out = base + result`` (base may be null otherwise).
+// synchronising, and returns cudaGetLastError() (or the launch's own error)
+// as an int.  ``accumulate`` selects ``out = base + result`` (base may be
+// null otherwise).
 
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TC = 32;  // cells per CTA: one warp spans 32 consecutive cells
+constexpr int TC = 32;  // cells per tile: one warp spans 32 consecutive cells
+
+// Block elements are stored as float or bfloat16 and upconverted per MAC,
+// as dgtpu's _mac does; state and accumulators are float.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The same through the read-only data path (ld.global.nc).
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) {
+    return __bfloat162float(
+        __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
 
 __device__ __forceinline__ int wrap(int x, int C) {
     x %= C;
@@ -105,28 +135,83 @@ __device__ __forceinline__ void stage_fields(float* fld, const float* x, int col
 }
 
 // sum_{s >= s0} sum_b blk[s][b][a] * fld[s][b] for cell q: one output mode
-// of the stencil row.  blk is one color's (5, Bs, Bd, C).
-__device__ __forceinline__ float stencil_row(const float* __restrict__ blk,
+// of the stencil row.  blk is one color's (5, Bs, Bd, C) of storage type T,
+// read through the read-only path when kLdg.
+template <bool kLdg = false, typename T>
+__device__ __forceinline__ float stencil_row(const T* __restrict__ blk,
                                              const float* fld, int s0, int a, int Bs,
                                              int Bd, int C, int q, int tx) {
     const size_t slot = (size_t)Bs * Bd * C;
     float acc = 0.f;
     for (int s = s0; s < 5; ++s) {
-        const float* A = blk + (size_t)s * slot;
+        const T* A = blk + (size_t)s * slot;
         const float* f = fld + s * Bs * TC + tx;
-        for (int b = 0; b < Bs; ++b)
-            acc = fmaf(A[((size_t)b * Bd + a) * C + q], f[b * TC], acc);
+        for (int b = 0; b < Bs; ++b) {
+            const T* e = A + ((size_t)b * Bd + a) * C + q;
+            acc = fmaf(kLdg ? ldg_f(e) : to_f(*e), f[b * TC], acc);
+        }
     }
     return acc;
 }
 
-// K1: one red-black half-sweep, the body of _soa_smooth (pallas_soa.py:341-353):
+// The red-black half-sweep on one tile of TC cells, shared by K1 and K7:
+//   out_c[:, q] = (base_c +) Dinv_c (rhs_c - sum_{s=1..4} blk_c[s] nbr_s(o))
+// for the cells q of tile ``tile`` of ``color`` (_soa_smooth body,
+// pallas_soa.py:341-353; StreamedLevel.half_sweeps, pallas_stream.py:283-300).
+// o (B, C) is the opposite color's lattice, null for a zero one (then t =
+// rhs and the blocks are not read); blk_c (5, B, B, C, slot 0 not read) and
+// dinv_c (B, B, C) are one color's, of storage type T.  The CTA stages the
+// neighbor fields of its cells in shared memory fld (5, B, TC), then t = rhs
+// - off in place of slot 0, then applies Dinv, so each cell's B modes are
+// gathered once and every block element is read once.  kShared: o is
+// written by other CTAs of the same (cooperative) launch between calls, so
+// it is read through L2 (__ldcg), and the blocks by plain loads; otherwise
+// o by plain loads and the blocks through the read-only path.  Each caller
+// runs faster with its own choice than with the other's on the H100
+// (PERF.md).  Every thread of the CTA calls it; it ends with the tile's
+// shared memory free again.
+template <typename T, bool kShared>
+__device__ __forceinline__ void half_sweep_tile(
+        const T* __restrict__ blk_c, const T* __restrict__ dinv_c,
+        const float* __restrict__ rhs_c, const float* o, const float* base_c,
+        float* out_c, float* fld, int tile, int color, int B, int C, int nh,
+        int periodic) {
+    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
+    const int q = tile * TC + tx;
+    const bool valid = q < C;
+    if (valid && o) {
+        for (int s = 0; s < 4; ++s) {
+            const int lane = nbr_lane(q, s, color, C, nh, periodic);
+            for (int b = ty; b < B; b += ny) {
+                const float* p = o + (size_t)b * C + lane;
+                fld[((s + 1) * B + b) * TC + tx] = kShared ? __ldcg(p) : *p;
+            }
+        }
+    }
+    __syncthreads();
+    if (valid)
+        for (int a = ty; a < B; a += ny)
+            fld[a * TC + tx] = rhs_c[(size_t)a * C + q]
+                             - (o ? stencil_row<!kShared>(blk_c, fld, 1, a, B, B, C, q, tx)
+                                  : 0.f);
+    __syncthreads();
+    if (valid)
+        for (int a = ty; a < B; a += ny) {
+            float acc = 0.f;
+            for (int b = 0; b < B; ++b) {
+                const T* e = dinv_c + ((size_t)b * B + a) * C + q;
+                acc = fmaf(kShared ? to_f(*e) : ldg_f(e), fld[b * TC + tx], acc);
+            }
+            const size_t i = (size_t)a * C + q;
+            out_c[i] = base_c ? base_c[i] + acc : acc;
+        }
+    __syncthreads();
+}
+
+// K1: one red-black half-sweep, float32 blocks:
 //   out[color]   = (base[color] +)   Dinv_c . (rhs_c - sum_{s=1..4} A_c[s] . nbr_s(u[1-color]))
 //   out[1-color] = (base[1-color] +) u[1-color]
-// CTA = TC cells x blockDim.y output-mode lanes.  The CTA stages the fields
-// of its cells in shared memory (5*B*TC floats; slot 0 is unused here), then
-// t = rhs - off in place of slot 0, then applies Dinv, so each cell's B
-// modes are gathered once and every block element is read once.  ``base``
+// One CTA per tile of TC cells x blockDim.y output-mode lanes.  ``base``
 // folds the Stokes sweep's uv + du_s into the last half-sweep.
 __global__ void half_sweep_kernel(const float* __restrict__ blocks,
                                   const float* __restrict__ dinv,
@@ -136,35 +221,64 @@ __global__ void half_sweep_kernel(const float* __restrict__ blocks,
                                   float* __restrict__ out,
                                   int color, int B, int C, int nh, int periodic,
                                   int accumulate) {
-    extern __shared__ float fld[];   // (5, B, TC): t, then the four neighbor fields
-    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
-    const int q = blockIdx.x * TC + tx;
-    const bool valid = q < C;
+    extern __shared__ float fld[];   // (5, B, TC)
     const size_t BC = (size_t)B * C;
-    const float* o = u + (size_t)(1 - color) * BC;
-    if (valid) {
-        for (int s = 0; s < 4; ++s) {
-            const int lane = nbr_lane(q, s, color, C, nh, periodic);
-            for (int b = ty; b < B; b += ny)
-                fld[((s + 1) * B + b) * TC + tx] = o[(size_t)b * C + lane];
-        }
+    const size_t oc = (size_t)(1 - color) * BC;
+    half_sweep_tile<float, false>(blocks, dinv, rhs, u + oc,
+                           accumulate ? base + (size_t)color * BC : nullptr,
+                           out + (size_t)color * BC, fld, blockIdx.x, color, B, C,
+                           nh, periodic);
+    const int q = blockIdx.x * TC + threadIdx.x;
+    if (q >= C) return;
+    for (int a = threadIdx.y; a < B; a += blockDim.y) {
+        const size_t i = oc + (size_t)a * C + q;
+        out[i] = accumulate ? base[i] + u[i] : u[i];
     }
-    __syncthreads();
-    if (valid)
-        for (int a = ty; a < B; a += ny)
-            fld[a * TC + tx] = rhs[(size_t)a * C + q]
-                             - stencil_row(blocks, fld, 1, a, B, B, C, q, tx);
-    __syncthreads();
-    if (!valid) return;
-    for (int a = ty; a < B; a += ny) {
-        float acc = 0.f;
-        for (int b = 0; b < B; ++b)
-            acc = fmaf(dinv[((size_t)b * B + a) * C + q], fld[b * TC + tx], acc);
-        const size_t oc = (size_t)color * BC + (size_t)a * C + q;
-        const size_t oo = (size_t)(1 - color) * BC + (size_t)a * C + q;
-        const float keep = o[(size_t)a * C + q];
-        out[oc] = accumulate ? base[oc] + acc : acc;
-        out[oo] = accumulate ? base[oo] + keep : keep;
+}
+
+// K7: n_half red-black half-sweeps (colors 0, 1, 0, 1, ...) in one
+// cooperative launch, the whole of StreamedLevel.half_sweeps(n_half)
+// (pallas_stream.py:234-345):
+//   h even: out[0] = Dinv_0 (rhs_0 - off_0(state[1]));  h odd: out[1] likewise
+// with state[1] = u[1] (zero when u is null) before the first half-sweep, and
+// out (+ base) at the end.  blocks / dinv are per-color operands of storage
+// type T with color strides blk_cs / dinv_cs elements (the float32 SoA
+// packing, or one bfloat16 [Dinv, iL, iR, jL, jR] tensor).  A persistent grid
+// of at most the co-resident CTA count strides over the tiles;
+// half-sweep h reads only the color h-1 wrote, so one grid-wide barrier per
+// half-sweep is the whole dependency.  With a base, color 0 takes its base
+// after one more barrier (the last half-sweep reads it); color 1 in the last
+// half-sweep.  Each CTA owns the same tiles in every half-sweep.
+template <typename T>
+__global__ void multi_half_sweep_kernel(const T* __restrict__ blocks,
+                                        const T* __restrict__ dinv,
+                                        long long blk_cs, long long dinv_cs,
+                                        const float* __restrict__ rhs,
+                                        const float* __restrict__ u,
+                                        const float* __restrict__ base,
+                                        float* out, int n_half, int B, int C, int nh,
+                                        int periodic) {
+    extern __shared__ float fld[];   // (5, B, TC)
+    cg::grid_group grid = cg::this_grid();
+    const size_t BC = (size_t)B * C;
+    const int n_tiles = (C + TC - 1) / TC;
+    for (int h = 0; h < n_half; ++h) {
+        const int color = h & 1;
+        const size_t oc = (size_t)(1 - color) * BC;
+        const float* o = h > 0 ? out + oc : (u ? u + oc : nullptr);
+        const float* b = (base && h == n_half - 1) ? base + (size_t)color * BC : nullptr;
+        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+            half_sweep_tile<T, true>(blocks + color * blk_cs, dinv + color * dinv_cs,
+                               rhs + (size_t)color * BC, o, b, out + (size_t)color * BC,
+                               fld, tile, color, B, C, nh, periodic);
+        if (h + 1 < n_half || base) grid.sync();
+    }
+    if (!base) return;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int q = tile * TC + threadIdx.x;
+        if (q < C)
+            for (int a = threadIdx.y; a < B; a += blockDim.y)
+                out[(size_t)a * C + q] += base[(size_t)a * C + q];
     }
 }
 
@@ -248,10 +362,12 @@ __global__ void geo_transfer_kernel(const float* __restrict__ T4,
 }
 
 // K5: out_c = (base_c +) sign * (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))
-// for both colors (blockIdx.y), rectangular blocks (5, Bs, Bd, C) per color.
-// The CTA stages the five fields of Bs modes for its 32 cells (5*Bs*TC
-// floats), then each thread row reduces output modes a = ty, ty+ny, ....
-__global__ void stencil_apply_kernel(const float* __restrict__ blocks,
+// for both colors (blockIdx.y), rectangular blocks (5, Bs, Bd, C) per color
+// of storage type T.  The CTA stages the five fields of Bs modes for its 32
+// cells (5*Bs*TC floats), then each thread row reduces output modes
+// a = ty, ty+ny, ....
+template <typename T>
+__global__ void stencil_apply_kernel(const T* __restrict__ blocks,
                                      const float* __restrict__ x,
                                      const float* __restrict__ base,
                                      float* __restrict__ out,
@@ -266,7 +382,7 @@ __global__ void stencil_apply_kernel(const float* __restrict__ blocks,
         stage_fields(fld, x, color, Bs, C, q, tx, ty, ny, nh, periodic);
     __syncthreads();
     if (!valid) return;
-    const float* blk = blocks + (size_t)color * 5 * Bs * Bd * C;
+    const T* blk = blocks + (size_t)color * 5 * Bs * Bd * C;
     for (int a = ty; a < Bd; a += ny) {
         const float y = sign * stencil_row(blk, fld, 0, a, Bs, Bd, C, q, tx);
         const size_t o = (size_t)color * Bd * C + (size_t)a * C + q;
@@ -329,6 +445,44 @@ __global__ void dg_half_sweep_kernel(const float* __restrict__ D,
 
 inline int mode_lanes(int B) { return B < 8 ? B : 8; }
 
+// CTAs of K7 that can be resident on the card at once for block size B.
+template <typename T>
+cudaError_t coresident_ctas(int B, int* n) {
+    int dev, coop, sms, per_sm;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, multi_half_sweep_kernel<T>, TC * mode_lanes(B),
+            (size_t)5 * B * TC * sizeof(float));
+    if (e == cudaSuccess) *n = per_sm * sms;
+    return e;
+}
+
+template <typename T>
+int launch_multi_half_sweep(const void* blocks, const void* dinv, long long blk_cs,
+                            long long dinv_cs, const float* rhs, const float* u,
+                            const float* base, float* out, int n_half, int B, int C,
+                            int nh, int periodic, int ctas, cudaStream_t stream) {
+    int most = 0;
+    cudaError_t e = coresident_ctas<T>(B, &most);
+    if (e != cudaSuccess) return (int)e;
+    // a grid that cannot be co-resident would deadlock at grid.sync(): refuse
+    if (ctas < 1 || ctas > most) return (int)cudaErrorCooperativeLaunchTooLarge;
+    const T* b = static_cast<const T*>(blocks);
+    const T* d = static_cast<const T*>(dinv);
+    void* args[] = {&b, &d, &blk_cs, &dinv_cs, &rhs, &u, &base, &out, &n_half, &B,
+                    &C, &nh, &periodic};
+    e = cudaLaunchCooperativeKernel((const void*)multi_half_sweep_kernel<T>, dim3(ctas),
+                                    dim3(TC, mode_lanes(B)), args,
+                                    (size_t)5 * B * TC * sizeof(float), stream);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,6 +497,23 @@ int soa_half_sweep(const float* blocks_c, const float* dinv_c, const float* rhs_
                                                      out, color, B, C, nh, periodic,
                                                      accumulate);
     return (int)cudaGetLastError();
+}
+
+int soa_multi_half_sweep(const void* blocks, const void* dinv, long long blk_cs,
+                         long long dinv_cs, const float* rhs, const float* u,
+                         const float* base, float* out, int n_half, int B, int C, int nh,
+                         int periodic, int block_bf16, int ctas, cudaStream_t stream) {
+    if (block_bf16)
+        return launch_multi_half_sweep<__nv_bfloat16>(blocks, dinv, blk_cs, dinv_cs, rhs,
+                                                      u, base, out, n_half, B, C, nh,
+                                                      periodic, ctas, stream);
+    return launch_multi_half_sweep<float>(blocks, dinv, blk_cs, dinv_cs, rhs, u, base,
+                                          out, n_half, B, C, nh, periodic, ctas, stream);
+}
+
+int soa_multi_half_sweep_ctas(int B, int block_bf16, int* n) {
+    return (int)(block_bf16 ? coresident_ctas<__nv_bfloat16>(B, n)
+                            : coresident_ctas<float>(B, n));
 }
 
 int soa_small_gemm(const float* W, const float* x, const float* base, float* out,
@@ -366,15 +537,20 @@ int soa_geo_transfer(const float* T4, const float* x, const float* base, float* 
     return (int)cudaGetLastError();
 }
 
-int soa_stencil_apply(const float* blocks, const float* x, const float* base,
+int soa_stencil_apply(const void* blocks, const float* x, const float* base,
                       float* out, int Bs, int Bd, int C, int nh, int periodic,
-                      float sign, int accumulate, cudaStream_t stream) {
+                      float sign, int accumulate, int block_bf16, cudaStream_t stream) {
     dim3 block(TC, mode_lanes(Bd));
     dim3 grid((C + TC - 1) / TC, 2);
     size_t smem = (size_t)5 * Bs * TC * sizeof(float);
-    stencil_apply_kernel<<<grid, block, smem, stream>>>(blocks, x, base, out, Bs, Bd,
-                                                        C, nh, periodic, sign,
-                                                        accumulate);
+    if (block_bf16)
+        stencil_apply_kernel<__nv_bfloat16><<<grid, block, smem, stream>>>(
+            static_cast<const __nv_bfloat16*>(blocks), x, base, out, Bs, Bd, C, nh,
+            periodic, sign, accumulate);
+    else
+        stencil_apply_kernel<float><<<grid, block, smem, stream>>>(
+            static_cast<const float*>(blocks), x, base, out, Bs, Bd, C, nh, periodic,
+            sign, accumulate);
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """Build, load and launch the CUDA kernels of ``csrc/soa_kernels.cu``: K1
 half-sweep, K3 small GEMM, K4 geometric transfer and K5 stencil apply of
-both cycles, and K6, the Stokes pressure half-sweep.
+both cycles, K6, the Stokes pressure half-sweep, and K7, the streamed
+hybrids' cooperative multi-half-sweep.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (never at import: the CPU tests import
@@ -22,19 +23,24 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "soa_kernels.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dgtpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+# K7's grid-wide barrier (cooperative_groups::this_grid().sync()) needs no
+# -rdc=true: nvcc 12.9 builds it into this whole-program library and it
+# synchronises on the H100 (tests/test_torch_kernels.py).
+NVCC_FLAGS =["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# entry point -> argument types (the last one is the stream)
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# entry point -> argument types (a launcher's last one is the stream)
 _SIGNATURES = {
     "soa_half_sweep": [_P] * 6 + [_I] * 6 + [_P],
+    "soa_multi_half_sweep": [_P] * 2 + [_L] * 2 + [_P] * 4 + [_I] * 7 + [_P],
+    "soa_multi_half_sweep_ctas": [_I, _I, ctypes.POINTER(_I)],
     "soa_small_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "soa_geo_transfer": [_P] * 4 + [_I] * 6 + [_P],
-    "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
     "soa_dg_half_sweep": [_P] * 8 + [_I] * 7 + [_P],
 }
-# K1/K5 stage 5*B*TC floats of shared memory per CTA (TC = 32 cells), K6
+# K1/K5/K7 stage 5*B*TC floats of shared memory per CTA (TC = 32 cells), K6
 # (5*Bu + Np)*TC; the launches stay under the 48 KB a kernel gets without an
 # opt-in attribute.
 _TC = 32
@@ -84,15 +90,24 @@ def library():
     return lib
 
 
-def _check(*tensors):
-    dev = tensors[0].device
-    for t in tensors:
+def _check(*tensors, blocks=()):
+    """Vectors float32, operator ``blocks`` float32 or bfloat16; all CUDA
+    tensors on one device, contiguous.  Returns whether the blocks are
+    bfloat16."""
+    every = tensors + tuple(blocks)
+    dev = every[0].device
+    for t in every:
         if not t.is_cuda or t.device != dev:
             raise ValueError("SoA kernels take CUDA tensors on one device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"SoA kernels are float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("SoA kernels take contiguous tensors")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"SoA kernels' vectors are float32, got {t.dtype}")
+    kinds = {t.dtype for t in blocks}
+    if not kinds <= {torch.float32, torch.bfloat16} or len(kinds) > 1:
+        raise TypeError(f"SoA kernels' blocks are float32 or bfloat16, got {kinds}")
+    return kinds == {torch.bfloat16}
 
 
 def _launch(name, *args):
@@ -103,13 +118,17 @@ def _launch(name, *args):
                            f"({lib.soa_error_string(code).decode()})")
 
 
-def _base_ptr(base):
-    return None if base is None else base.data_ptr()
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _opt(*tensors):
+    return tuple(t for t in tensors if t is not None)
 
 
 def half_sweep(blocks, Dinv, rhs, u, color, nh, periodic, base=None):
     """K1; see ``ops.soa.half_sweep``."""
-    _check(blocks, Dinv, rhs, u, *(() if base is None else (base,)))
+    _check(blocks, Dinv, rhs, u, *_opt(base))
     _, _, B, _, C = blocks.shape
     if blocks.shape != (2, 5, B, B, C) or Dinv.shape != (2, B, B, C) \
             or rhs.shape != (2, B, C) or u.shape != (2, B, C) \
@@ -120,14 +139,14 @@ def half_sweep(blocks, Dinv, rhs, u, color, nh, periodic, base=None):
                          f"tile (B <= {_MAX_SMEM_B})")
     out = torch.empty_like(u)
     _launch("soa_half_sweep", blocks[color].data_ptr(), Dinv[color].data_ptr(),
-            rhs[color].data_ptr(), u.data_ptr(), _base_ptr(base), out.data_ptr(),
+            rhs[color].data_ptr(), u.data_ptr(), _ptr(base), out.data_ptr(),
             int(color), B, C, int(nh), int(periodic), int(base is not None))
     return out
 
 
 def small_gemm(W, x, base=None):
     """K3; see ``ops.soa.small_gemm``."""
-    _check(W, x, *(() if base is None else (base,)))
+    _check(W, x, *_opt(base))
     M, K = W.shape
     if x.dim() != 3 or x.shape[1] != K:
         raise ValueError(f"small_gemm: W {tuple(W.shape)} vs x {tuple(x.shape)}")
@@ -135,14 +154,14 @@ def small_gemm(W, x, base=None):
     if base is not None and base.shape != (batch, M, N):
         raise ValueError("small_gemm: base shape mismatch")
     out = torch.empty((batch, M, N), dtype=x.dtype, device=x.device)
-    _launch("soa_small_gemm", W.data_ptr(), x.data_ptr(), _base_ptr(base),
+    _launch("soa_small_gemm", W.data_ptr(), x.data_ptr(), _ptr(base),
             out.data_ptr(), M, K, N, batch, int(base is not None))
     return out
 
 
 def geo_transfer(T4, x, dims_c, restrict, base=None):
     """K4; see ``ops.soa.geo_transfer``."""
-    _check(T4, x, *(() if base is None else (base,)))
+    _check(T4, x, *_opt(base))
     njc, nic = dims_c
     _, Bout, Bin = T4.shape
     Cc, Cf = njc * (nic // 2), 4 * njc * (nic // 2)
@@ -153,14 +172,14 @@ def geo_transfer(T4, x, dims_c, restrict, base=None):
     if base is not None and (restrict or base.shape != (2, Bout, C_out)):
         raise ValueError("geo_transfer: base is the fine-level addend of a prolongation")
     out = torch.empty((2, Bout, C_out), dtype=x.dtype, device=x.device)
-    _launch("soa_geo_transfer", T4.data_ptr(), x.data_ptr(), _base_ptr(base),
+    _launch("soa_geo_transfer", T4.data_ptr(), x.data_ptr(), _ptr(base),
             out.data_ptr(), Bout, Bin, njc, nic, int(restrict), int(base is not None))
     return out
 
 
 def stencil_apply(blocks, x, nh, periodic, base=None, sign=1.0):
-    """K5; see ``ops.soa.stencil_apply``."""
-    _check(blocks, x, *(() if base is None else (base,)))
+    """K5; see ``ops.soa.stencil_apply``.  ``blocks`` float32 or bfloat16."""
+    bf16 = _check(x, *_opt(base), blocks=(blocks,))
     _, _, Bs, Bd, C = blocks.shape
     if blocks.shape != (2, 5, Bs, Bd, C) or x.shape != (2, Bs, C):
         raise ValueError(f"stencil_apply: blocks {tuple(blocks.shape)} vs x "
@@ -171,15 +190,15 @@ def stencil_apply(blocks, x, nh, periodic, base=None, sign=1.0):
         raise ValueError(f"stencil_apply: B_src={Bs} exceeds the kernel's "
                          f"shared-memory tile (B_src <= {_MAX_SMEM_B})")
     out = torch.empty((2, Bd, C), dtype=x.dtype, device=x.device)
-    _launch("soa_stencil_apply", blocks.data_ptr(), x.data_ptr(), _base_ptr(base),
+    _launch("soa_stencil_apply", blocks.data_ptr(), x.data_ptr(), _ptr(base),
             out.data_ptr(), Bs, Bd, C, int(nh), int(periodic), float(sign),
-            int(base is not None))
+            int(base is not None), int(bf16))
     return out
 
 
 def dg_half_sweep(D, DG_diag, DG_Dinv, rhs, p, g, color, nh, periodic, base=None):
     """K6; see ``ops.stokes_soa.dg_half_sweep``."""
-    _check(D, DG_diag, DG_Dinv, rhs, p, g, *(() if base is None else (base,)))
+    _check(D, DG_diag, DG_Dinv, rhs, p, g, *_opt(base))
     _, _, Bu, Np, C = D.shape
     if D.shape != (2, 5, Bu, Np, C) or DG_diag.shape != (2, Np, Np, C) \
             or DG_Dinv.shape != (2, Np, Np, C) or rhs.shape != (2, Np, C) \
@@ -192,6 +211,57 @@ def dg_half_sweep(D, DG_diag, DG_Dinv, rhs, p, g, color, nh, periodic, base=None
     out = torch.empty_like(p)
     _launch("soa_dg_half_sweep", D[color].data_ptr(), DG_diag[color].data_ptr(),
             DG_Dinv[color].data_ptr(), rhs[color].data_ptr(), g.data_ptr(),
-            p.data_ptr(), _base_ptr(base), out.data_ptr(), int(color), Bu, Np, C,
+            p.data_ptr(), _ptr(base), out.data_ptr(), int(color), Bu, Np, C,
             int(nh), int(periodic), int(base is not None))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def coresident_ctas(B, bf16):
+    """How many CTAs of K7 for block size B fit on the card at once: the
+    largest grid a cooperative launch takes."""
+    n = ctypes.c_int()
+    code = library().soa_multi_half_sweep_ctas(int(B), int(bf16), ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"soa_multi_half_sweep_ctas failed: CUDA error {code} "
+                           f"({library().soa_error_string(code).decode()})")
+    return n.value
+
+
+def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
+                     ctas=None):
+    """K7; see ``ops.stream.multi_half_sweep``.  ``blocks`` (2, 5, B, B, C)
+    (slots 1..4 read) and ``Dinv`` (2, B, B, C) are float32 or bfloat16 and
+    may be strided per color (``Dinv`` may be slot 0 of ``blocks``); ``u``
+    None is a zero start.  ``ctas``: the grid (default: one CTA per 32-cell
+    tile, at most the co-resident count); a grid that cannot be co-resident
+    raises."""
+    _check(rhs, *_opt(u, base))
+    _, _, B, _, C = blocks.shape
+    for name, t, inner in (("blocks", blocks, (B * B * C, B * C, C, 1)),
+                           ("Dinv", Dinv, (B * C, C, 1))):
+        if not t.is_cuda or t.device != rhs.device or t.stride()[1:] != inner:
+            raise ValueError(f"multi_half_sweep: {name} must be CUDA tensors on the "
+                             "vectors' device, contiguous within a color")
+    if Dinv.dtype != blocks.dtype or blocks.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("multi_half_sweep: blocks and Dinv are both float32 or "
+                        f"both bfloat16, got {blocks.dtype}, {Dinv.dtype}")
+    if blocks.shape != (2, 5, B, B, C) or Dinv.shape != (2, B, B, C) \
+            or rhs.shape != (2, B, C) or (u is not None and u.shape != rhs.shape) \
+            or (base is not None and base.shape != rhs.shape):
+        raise ValueError("multi_half_sweep: inconsistent SoA shapes")
+    if n_half < 2 or n_half % 2:
+        raise ValueError(f"multi_half_sweep: half-sweeps come in red/black pairs, "
+                         f"got {n_half}")
+    if B > _MAX_SMEM_B:
+        raise ValueError(f"multi_half_sweep: B={B} exceeds the kernel's "
+                         f"shared-memory tile (B <= {_MAX_SMEM_B})")
+    bf16 = blocks.dtype == torch.bfloat16
+    if ctas is None:
+        ctas = min(-(-C // _TC), coresident_ctas(B, bf16))
+    out = torch.empty_like(rhs)
+    _launch("soa_multi_half_sweep", blocks.data_ptr(), Dinv.data_ptr(),
+            blocks.stride(0), Dinv.stride(0), rhs.data_ptr(), _ptr(u), _ptr(base),
+            out.data_ptr(), int(n_half), B, C, int(nh), int(periodic), int(bf16),
+            int(ctas))
     return out

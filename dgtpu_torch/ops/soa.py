@@ -64,12 +64,52 @@ class SoALevel:
 
 
 # ---------------------------------------------------------------------------
+# host-side packing (pallas_soa.py:204-236)
+# ---------------------------------------------------------------------------
+
+def soa_blocks(rb):
+    """Rolled stencil blocks (nj, ni, 5, B_dst, B_src) -> per-color SoA
+    (2, 5, B_src, B_dst, C)."""
+    nj, ni, _, bd, bs = rb.shape
+    pair, _ = rolled.pack_operator_colors(rb)
+    return torch.stack([x.permute(2, 4, 3, 0, 1).reshape(5, bs, bd, nj * (ni // 2))
+                        for x in pair])
+
+
+def soa_diag(D):
+    """Per-cell matrices (nj, ni, a, b) -> per-color SoA (2, b, a, C), the
+    layout of Dinv."""
+    nj, ni, a, b = D.shape
+    _, pair = rolled.pack_operator_colors(D.new_zeros(nj, ni, 5, 1, 1), D)
+    return torch.stack([x.permute(3, 2, 0, 1).reshape(b, a, nj * (ni // 2))
+                        for x in pair])
+
+
+def lane_masks(nj, ni, dtype, device):
+    """(3, 1, C) float lane masks [even row, row start, row end]."""
+    nh = ni // 2
+    lanes_j = np.repeat(np.arange(nj), nh)
+    lanes_ip = np.tile(np.arange(nh), nj)
+    masks = np.stack([lanes_j % 2 == 0, lanes_ip == 0, lanes_ip == nh - 1])
+    return torch.as_tensor(masks[:, None, :], dtype=dtype, device=device)
+
+
+def is_periodic(op, ni):
+    """Whether the lattice wraps in i (an O-grid): cell 0's iL neighbor is
+    the row's last cell."""
+    nbr = op.nbr.cpu().numpy()
+    msk = op.mask.cpu().numpy()
+    return bool(ni > 1 and msk[0, 1] and nbr[0, 1] == ni - 1)
+
+
+# ---------------------------------------------------------------------------
 # plain torch versions (CPU path, and the on-card reference)
 # ---------------------------------------------------------------------------
 
 def _mac(blk, f):
-    """sum_b blk[b] * f[b] for blk (B_src, B_dst, C), f (B_src, C)."""
-    return torch.einsum("bac,bc->ac", blk, f)
+    """sum_b blk[b] * f[b] for blk (B_src, B_dst, C), f (B_src, C); blocks
+    stored narrower than ``f`` (bfloat16) are upconverted first."""
+    return torch.einsum("bac,bc->ac", blk.to(f.dtype), f)
 
 
 def _nbr_fields(o, color, masks, nh, periodic):
@@ -219,7 +259,73 @@ reset_launch_counts()
 # the cycle
 # ---------------------------------------------------------------------------
 
-class SoAVCycle:
+class SoAHierarchy:
+    """What the SoA cycle and the streamed hybrid (``ops/stream.py``) share:
+    the cast to the cycle's dtype and device, the transfers between levels
+    (polynomial R (B_c, B) / P (B, B_c) as matrices for K3, geometric
+    per-child R4 (4, B_c, B) / P4 (4, B, B_c) for K4, pallas_vcycle.py:132-143)
+    and the finest level's layout conversion.  A subclass sets ``dims``,
+    ``dtype``, ``device``, ``transfers`` and the ``_gemm``/``_geo`` phase
+    functions."""
+
+    def _cast(self, x):
+        return x.to(device=self.device, dtype=self.dtype).contiguous()
+
+    def _pack_transfers(self):
+        self.R, self.P = [], []
+        for t in self.transfers:
+            if t.kind == "geometric":
+                B = t.R.shape[1] // 4
+                R4 = torch.stack([t.R[:, k * B:(k + 1) * B] for k in range(4)])
+                P4 = torch.stack([t.P[k * B:(k + 1) * B, :] for k in range(4)])
+                self.R.append(self._cast(R4))
+                self.P.append(self._cast(P4))
+            elif t.kind == "polynomial":
+                self.R.append(self._cast(t.R))
+                self.P.append(self._cast(t.P))
+            elif t.kind == "penalty":
+                self.R.append(None)
+                self.P.append(None)
+            else:
+                raise NotImplementedError(
+                    f"the SoA cycle has no {t.kind!r} transfer (FVM coarse "
+                    "level: ROADMAP Queue 1 item 11)")
+
+    def _restrict(self, k, r):
+        kind = self.transfers[k].kind
+        if kind == "penalty":
+            return r
+        if kind == "polynomial":
+            return self._gemm(self.R[k], r)
+        return self._geo(self.R[k], r, self.dims[k], True)
+
+    def _prolong(self, k, e, base=None):
+        """P e (+ base): the prolonged correction, added to ``base``."""
+        kind = self.transfers[k].kind
+        if kind == "penalty":
+            return e if base is None else base + e
+        if kind == "polynomial":
+            return self._gemm(self.P[k], e, base)
+        return self._geo(self.P[k], e, self.dims[k], False, base)
+
+    def to_soa(self, v):
+        """(N*B,) -> (2, B, C) color lattices in the cycle's dtype."""
+        nj, ni = self.dims[-1]
+        B = v.numel() // (nj * ni)
+        v = v.to(device=self.device, dtype=self.dtype).reshape(nj, ni, B)
+        u0, u1 = rolled.pack_colors(v, rolled.parity_mask(nj, v.dtype, v.device))
+        return torch.stack([u0.reshape(-1, B).T, u1.reshape(-1, B).T]).contiguous()
+
+    def from_soa(self, u):
+        nj, ni = self.dims[-1]
+        B = u.shape[1]
+        ev = rolled.parity_mask(nj, u.dtype, u.device)
+        a = u[0].T.reshape(nj, ni // 2, B)
+        b = u[1].T.reshape(nj, ni // 2, B)
+        return rolled.unpack_colors(a, b, ev).reshape(-1)
+
+
+class SoAVCycle(SoAHierarchy):
     """Multigrid V/W/F cycle in the cells-in-lanes layout.
 
     ``ops``: per-level StencilOperators (coarsest first), ``transfers[k]``
@@ -261,53 +367,36 @@ class SoAVCycle:
 
         self.levels = [self._pack_level(op, nj, ni)
                        for op, (nj, ni) in zip(ops, self.dims)]
-        # transfers: polynomial R (B_c, B) / P (B, B_c); geometric per-child
-        # R4 (4, B_c, B) / P4 (4, B, B_c) (pallas_vcycle.py:132-143)
-        self.R, self.P = [], []
-        for t in self.transfers:
-            if t.kind == "geometric":
-                B = t.R.shape[1] // 4
-                R4 = torch.stack([t.R[:, k * B:(k + 1) * B] for k in range(4)])
-                P4 = torch.stack([t.P[k * B:(k + 1) * B, :] for k in range(4)])
-                self.R.append(self._cast(R4))
-                self.P.append(self._cast(P4))
-            elif t.kind == "polynomial":
-                self.R.append(self._cast(t.R))
-                self.P.append(self._cast(t.P))
-            elif t.kind == "penalty":
-                self.R.append(None)
-                self.P.append(None)
-            else:
-                raise NotImplementedError(
-                    f"the SoA cycle has no {t.kind!r} transfer (FVM coarse "
-                    "level: ROADMAP Queue 1 item 11)")
+        self._pack_transfers()
         self.coarse_W = (self._coarse_matrix(ops[0])
                          if self.coarse_solver in ("direct", "amg") else None)
 
-    def _cast(self, x):
-        return x.to(device=self.device, dtype=self.dtype).contiguous()
+    @staticmethod
+    def device_bytes(ops, dims, transfers, dtype=torch.float32, with_coarse=True):
+        """Bytes of the device tensors a cycle over this hierarchy holds,
+        from the shapes alone: per level the blocks (2, 5, B, B, C), Dinv
+        (2, B, B, C) and masks (3, 1, C); per transfer R and P (per child for
+        a geometric one); with ``with_coarse`` the dense coarse inverse
+        (M, M), M = N0 B0.  The streamed hybrid's cut rule reads it."""
+        count = 0
+        for op, (nj, ni) in zip(ops, dims):
+            B = op.blocks.shape[-1]
+            count += (2 * 5 * B * B + 2 * B * B + 3) * nj * (ni // 2)
+        for k, t in enumerate(transfers):
+            children = {"geometric": 4, "polynomial": 1}.get(t.kind, 0)
+            count += 2 * children * ops[k].blocks.shape[-1] * ops[k + 1].blocks.shape[-1]
+        if with_coarse and ops:
+            M = dims[0][0] * dims[0][1] * ops[0].blocks.shape[-1]
+            count += M * M
+        return count * torch.empty((), dtype=dtype).element_size()
 
     def _pack_level(self, op, nj, ni):
-        nh = ni // 2
-        C = nj * nh
         blocks = self._cast(rolled.to_rolled(op, ni, nj))     # (nj, ni, 5, B, B)
         # the diagonal-block inverse in the cycle's dtype, on the host
         Dinv = host_inv(blocks[:, :, 0])
-        bc, dc = rolled.pack_operator_colors(blocks, Dinv)
-        B = blocks.shape[-1]
-        # (nj, nh, 5, a, b) -> (5, b, a, j*nh + ip);  (nj, nh, a, b) -> (b, a, C)
-        soa_b = torch.stack([x.permute(2, 4, 3, 0, 1).reshape(5, B, B, C)
-                             for x in bc])
-        soa_d = torch.stack([x.permute(3, 2, 0, 1).reshape(B, B, C) for x in dc])
-        lanes_j = np.repeat(np.arange(nj), nh)
-        lanes_ip = np.tile(np.arange(nh), nj)
-        masks = np.stack([lanes_j % 2 == 0, lanes_ip == 0, lanes_ip == nh - 1])
-        nbr = op.nbr.cpu().numpy()
-        msk = op.mask.cpu().numpy()
-        periodic = bool(ni > 1 and msk[0, 1] and nbr[0, 1] == ni - 1)
-        return SoALevel(soa_b.contiguous(), soa_d.contiguous(),
-                        self._cast(torch.as_tensor(masks[:, None, :])),
-                        nj, ni, periodic)
+        return SoALevel(soa_blocks(blocks).contiguous(), soa_diag(Dinv).contiguous(),
+                        lane_masks(nj, ni, self.dtype, self.device), nj, ni,
+                        is_periodic(op, ni))
 
     def _coarse_matrix(self, op):
         """The coarsest level's dense inverse permuted to the flattened SoA
@@ -341,23 +430,6 @@ class SoAVCycle:
             u = self._half_sweep(lv, rhs, u, 0)
             u = self._half_sweep(lv, rhs, u, 1)
         return u
-
-    def _restrict(self, k, r):
-        kind = self.transfers[k].kind
-        if kind == "penalty":
-            return r
-        if kind == "polynomial":
-            return self._gemm(self.R[k], r)
-        return self._geo(self.R[k], r, self.dims[k], True)
-
-    def _prolong(self, k, e, base=None):
-        """P e (+ base): the prolonged correction, added to ``base``."""
-        kind = self.transfers[k].kind
-        if kind == "penalty":
-            return e if base is None else base + e
-        if kind == "polynomial":
-            return self._gemm(self.P[k], e, base)
-        return self._geo(self.P[k], e, self.dims[k], False, base)
 
     def _coarse_solve(self, rhs, u):
         if self.coarse_W is None:
@@ -415,21 +487,3 @@ class SoAVCycle:
             return finest_cycle(r, u) if skip else u
 
         return fmg
-
-    # -- layout conversion ---------------------------------------------------
-
-    def to_soa(self, v):
-        """(N*B,) -> (2, B, C) color lattices in the cycle's dtype."""
-        nj, ni = self.dims[-1]
-        B = self.levels[-1].blocks.shape[2]
-        v = v.to(device=self.device, dtype=self.dtype).reshape(nj, ni, B)
-        u0, u1 = rolled.pack_colors(v, rolled.parity_mask(nj, v.dtype, v.device))
-        return torch.stack([u0.reshape(-1, B).T, u1.reshape(-1, B).T]).contiguous()
-
-    def from_soa(self, u):
-        nj, ni = self.dims[-1]
-        B = u.shape[1]
-        ev = rolled.parity_mask(nj, u.dtype, u.device)
-        a = u[0].T.reshape(nj, ni // 2, B)
-        b = u[1].T.reshape(nj, ni // 2, B)
-        return rolled.unpack_colors(a, b, ev).reshape(-1)

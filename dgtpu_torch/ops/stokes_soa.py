@@ -34,7 +34,8 @@ from dgtpu_torch.models.stokes import (_dg_diag_blocks, _elem_uv_to_global,
                                        _global_uv_to_elem)
 from dgtpu_torch.ops import _kernels, rolled, soa
 from dgtpu_torch.ops.linalg import host_inv, host_lu_inverse
-from dgtpu_torch.ops.soa import _mac, _off, _packed_pos
+from dgtpu_torch.ops.soa import (_mac, _off, _packed_pos, is_periodic,
+                                 lane_masks, soa_blocks, soa_diag)
 
 _DGS = "distributive_gauss_seidel"
 
@@ -112,7 +113,126 @@ def _blockdiag2(M):
 # the cycle
 # ---------------------------------------------------------------------------
 
-class SoAStokesVCycle:
+class StokesSoAHierarchy:
+    """What the Stokes SoA cycle and the streamed Stokes hybrid
+    (``ops/stokes_stream.py``) share: the cast, the per-component transfers
+    (polynomial (R, P) pairs as matrices for K3, geometric per-child R4 / P4
+    for K4) and the finest level's layout conversion.  A subclass sets
+    ``dims``, ``nu``, ``npd``, ``dtype``, ``device``, ``transfers`` and the
+    ``_gemm``/``_geo`` phase functions."""
+
+    def _cast(self, x):
+        return x.to(device=self.device, dtype=self.dtype).contiguous()
+
+    def _pack_transfers(self):
+        self.R, self.P = [], []
+        for t in self.transfers:
+            if t.kind == "penalty":
+                self.R.append(None)
+                self.P.append(None)
+            elif t.kind == "polynomial":
+                Ruv, Rp = _blockdiag2(t.Ru), t.Rp
+                self.R.append((self._cast(Ruv), self._cast(Rp)))
+                self.P.append((self._cast(Ruv.T), self._cast(Rp.T)))
+            elif t.kind == "geometric":
+                r4, p4 = [], []
+                for tb, uv in ((t.tu, True), (t.tp, False)):
+                    B = tb.R.shape[1] // 4
+                    R4 = torch.stack([tb.R[:, k * B:(k + 1) * B] for k in range(4)])
+                    P4 = torch.stack([tb.P[k * B:(k + 1) * B, :] for k in range(4)])
+                    r4.append(self._cast(_blockdiag2(R4) if uv else R4))
+                    p4.append(self._cast(_blockdiag2(P4) if uv else P4))
+                self.R.append(tuple(r4))
+                self.P.append(tuple(p4))
+            else:
+                raise NotImplementedError(
+                    f"the Stokes SoA cycle has no {t.kind!r} transfer")
+
+    def _restrict(self, k, r_mom, r_cont):
+        kind = self.transfers[k].kind
+        if kind == "penalty":
+            return r_mom, r_cont
+        Ruv, Rp = self.R[k]
+        if kind == "polynomial":
+            return self._gemm(Ruv, r_mom), self._gemm(Rp, r_cont)
+        return (self._geo(Ruv, r_mom, self.dims[k], True),
+                self._geo(Rp, r_cont, self.dims[k], True))
+
+    def _prolong(self, k, e_uv, e_p, base_uv=None, base_p=None):
+        """(base +) P e per component."""
+        kind = self.transfers[k].kind
+        if kind == "penalty":
+            return (e_uv if base_uv is None else base_uv + e_uv,
+                    e_p if base_p is None else base_p + e_p)
+        Puv, Pp = self.P[k]
+        if kind == "polynomial":
+            return self._gemm(Puv, e_uv, base_uv), self._gemm(Pp, e_p, base_p)
+        return (self._geo(Puv, e_uv, self.dims[k], False, base_uv),
+                self._geo(Pp, e_p, self.dims[k], False, base_p))
+
+    def to_soa(self, x):
+        """Global [all u; all v; all p] -> (uv (2, 2Nu, C), p (2, Np, C))."""
+        nj, ni = self.dims[-1]
+        n = nj * ni
+        nu = self.nu[-1]
+        x = x.to(device=self.device, dtype=self.dtype)
+        uv = _global_uv_to_elem(x[:2 * n * nu], n, nu).reshape(nj, ni, 2 * nu)
+        p = x[2 * n * nu:].reshape(nj, ni, self.npd[-1])
+        ev = rolled.parity_mask(nj, x.dtype, x.device)
+
+        def pack(v):
+            a, b = rolled.pack_colors(v, ev)
+            B = v.shape[-1]
+            return torch.stack([a.reshape(-1, B).T, b.reshape(-1, B).T]).contiguous()
+
+        return pack(uv), pack(p)
+
+    def from_soa(self, uv, p):
+        nj, ni = self.dims[-1]
+        ev = rolled.parity_mask(nj, uv.dtype, uv.device)
+
+        def unpack(v):
+            B = v.shape[1]
+            return rolled.unpack_colors(v[0].T.reshape(nj, ni // 2, B),
+                                        v[1].T.reshape(nj, ni // 2, B), ev).reshape(-1)
+
+        n, nu = nj * ni, self.nu[-1]
+        return torch.cat([_elem_uv_to_global(unpack(uv), n, nu), unpack(p)])
+
+
+def check_dgs(settings, types):
+    """{coarsening type: (pre, post) sweeps} after checking that every
+    smoother of ``types`` is distributive GS (the only one the Stokes SoA
+    and streamed cycles run)."""
+    cfg = {}
+    for t in set(types):
+        node = getattr(settings.solver.multigrid, f"{t}_coarsening")
+        for side in (node.pre_smoother, node.post_smoother):
+            if str(side.smoother).lower() != _DGS:
+                raise ValueError(
+                    "the Stokes SoA and streamed cycles smooth with distributive "
+                    f"GS; config names {side.smoother!r}")
+        cfg[t] = (int(node.pre_smoother.iterations),
+                  int(node.post_smoother.iterations))
+    return cfg
+
+
+def stokes_soa_level(lvl, cast):
+    """dgtpu's per-level packing (pallas_stokes.py:99-139): the blocks and
+    the float64 diagonal inverses on the host, then ``cast``."""
+    nj, ni = lvl.Nj, lvl.Ni
+    rb_A = rolled.to_rolled(lvl.block_A, ni, nj)
+    dgd = _dg_diag_blocks(lvl.block_D, lvl.block_G)
+    dgd = dgd.reshape(nj, ni, *dgd.shape[1:])
+    soa = [soa_blocks(rolled.to_rolled(op, ni, nj))
+           for op in (lvl.block_A, lvl.block_G, lvl.block_D)]
+    diag = [soa_diag(m) for m in (host_inv(rb_A[:, :, 0]), dgd, host_inv(dgd))]
+    masks = lane_masks(nj, ni, torch.float64, rb_A.device)
+    return StokesSoALevel(*(cast(x) for x in soa + diag + [masks]), nj, ni,
+                          is_periodic(lvl.block_A, ni))
+
+
+class SoAStokesVCycle(StokesSoAHierarchy):
     """Stokes DGS V/W/F cycle, cells-in-lanes layout.
 
     ``levels``: GridLevels coarsest -> finest with a global-order Stokes
@@ -150,16 +270,7 @@ class SoAStokesVCycle:
         (self._half_sweep, self._stencil, self._gemm, self._geo,
          self._dg_half) = kernels
 
-        self._cfg = {}
-        for t in set(self.types):
-            node = getattr(settings.solver.multigrid, f"{t}_coarsening")
-            for side in (node.pre_smoother, node.post_smoother):
-                if str(side.smoother).lower() != _DGS:
-                    raise ValueError(
-                        "SoAStokesVCycle smooths with distributive GS; "
-                        f"config names {side.smoother!r}")
-            self._cfg[t] = (int(node.pre_smoother.iterations),
-                            int(node.post_smoother.iterations))
+        self._cfg = check_dgs(settings, self.types)
         self.cycle_type = str(getattr(settings.solver.multigrid,
                                       "cycle_type", "V")).upper()
         if self.cycle_type not in ("V", "W", "F"):
@@ -167,74 +278,33 @@ class SoAStokesVCycle:
                 f"the Stokes SoA cycle implements V, W and F, not "
                 f"{self.cycle_type!r}")
 
-        self.levels = [self._pack_level(l) for l in levels]
-        # transfers: polynomial (R, P) pairs per component as matrices;
-        # geometric per-child R4 (4, B_c, B) / P4 (4, B, B_c) per component
-        self.R, self.P = [], []
-        for t in self.transfers:
-            if t.kind == "penalty":
-                self.R.append(None)
-                self.P.append(None)
-            elif t.kind == "polynomial":
-                Ruv, Rp = _blockdiag2(t.Ru), t.Rp
-                self.R.append((self._cast(Ruv), self._cast(Rp)))
-                self.P.append((self._cast(Ruv.T), self._cast(Rp.T)))
-            elif t.kind == "geometric":
-                r4, p4 = [], []
-                for tb, uv in ((t.tu, True), (t.tp, False)):
-                    B = tb.R.shape[1] // 4
-                    R4 = torch.stack([tb.R[:, k * B:(k + 1) * B] for k in range(4)])
-                    P4 = torch.stack([tb.P[k * B:(k + 1) * B, :] for k in range(4)])
-                    r4.append(self._cast(_blockdiag2(R4) if uv else R4))
-                    p4.append(self._cast(_blockdiag2(P4) if uv else P4))
-                self.R.append(tuple(r4))
-                self.P.append(tuple(p4))
-            else:
-                raise NotImplementedError(
-                    f"the Stokes SoA cycle has no {t.kind!r} transfer")
+        self.levels = [stokes_soa_level(l, self._cast) for l in levels]
+        self._pack_transfers()
         self.coarse_solver = settings.solver.multigrid.coarse_grid_solver
         self.coarse_W = (self._coarse_matrix(levels[0])
                          if self.coarse_solver in ("direct", "amg") else None)
 
-    def _cast(self, x):
-        return x.to(device=self.device, dtype=self.dtype).contiguous()
-
-    def _pack_level(self, lvl):
-        """dgtpu's per-level packing (pallas_stokes.py:99-139): the blocks
-        and the float64 diagonal inverses on the host, then the cast."""
-        nj, ni = lvl.Nj, lvl.Ni
-        nh = ni // 2
-        C = nj * nh
-
-        def soa_blocks(op):
-            rb = rolled.to_rolled(op, ni, nj)                 # (nj, ni, 5, a, b)
-            pair, _ = rolled.pack_operator_colors(rb)
-            B_dst, B_src = rb.shape[-2:]
-            return torch.stack([x.permute(2, 4, 3, 0, 1).reshape(5, B_src, B_dst, C)
-                                for x in pair])
-
-        def soa_diag(blocks):                                 # (nj, ni, a, b)
-            zeros = torch.zeros((nj, ni, 5, 1, 1), dtype=blocks.dtype,
-                                device=blocks.device)
-            _, pair = rolled.pack_operator_colors(zeros, blocks)
-            B = blocks.shape[-1]
-            return torch.stack([x.permute(3, 2, 0, 1).reshape(B, B, C) for x in pair])
-
-        rb_A = rolled.to_rolled(lvl.block_A, ni, nj)
-        A_Dinv = soa_diag(host_inv(rb_A[:, :, 0]))
-        dgd = _dg_diag_blocks(lvl.block_D, lvl.block_G)
-        dgd = dgd.reshape(nj, ni, *dgd.shape[1:])
-        lanes_j = np.repeat(np.arange(nj), nh)
-        lanes_ip = np.tile(np.arange(nh), nj)
-        masks = np.stack([lanes_j % 2 == 0, lanes_ip == 0, lanes_ip == nh - 1])
-        nbr = lvl.block_A.nbr.cpu().numpy()
-        msk = lvl.block_A.mask.cpu().numpy()
-        periodic = bool(ni > 1 and msk[0, 1] and nbr[0, 1] == ni - 1)
-        return StokesSoALevel(
-            self._cast(soa_blocks(lvl.block_A)), self._cast(soa_blocks(lvl.block_G)),
-            self._cast(soa_blocks(lvl.block_D)), self._cast(A_Dinv),
-            self._cast(soa_diag(dgd)), self._cast(soa_diag(host_inv(dgd))),
-            self._cast(torch.as_tensor(masks[:, None, :])), nj, ni, periodic)
+    @staticmethod
+    def device_bytes(levels, transfers, dtype=torch.float32, with_coarse=True):
+        """Bytes of the device tensors a cycle over this hierarchy holds,
+        from the shapes alone: per level A, G, D (2, 5, B_src, B_dst, C),
+        A_Dinv, DG_diag, DG_Dinv (2, B, B, C) and the masks (3, 1, C); per
+        transfer R and P of both components (per child for a geometric one);
+        with ``with_coarse`` the dense saddle inverse (M, M), M = N0 (2 Nu +
+        Np).  The streamed Stokes hybrid's cut rule reads it."""
+        nu2 = [2 * l.N_DOF_sol["u"] for l in levels]
+        npd = [l.N_DOF_sol["p"] for l in levels]
+        count = 0
+        for l, a, p in zip(levels, nu2, npd):
+            count += (2 * 5 * (a * a + 2 * a * p) + 2 * a * a + 4 * p * p + 3) \
+                * l.Nj * (l.Ni // 2)
+        for k, t in enumerate(transfers):
+            children = {"geometric": 4, "polynomial": 1}.get(t.kind, 0)
+            count += 2 * children * (nu2[k] * nu2[k + 1] + npd[k] * npd[k + 1])
+        if with_coarse and levels:
+            M = levels[0].Nj * levels[0].Ni * (nu2[0] + npd[0])
+            count += M * M
+        return count * torch.empty((), dtype=dtype).element_size()
 
     def _coarse_matrix(self, lvl):
         """The coarsest level's pinned dense saddle inverse permuted to the
@@ -319,30 +389,6 @@ class SoAStokesVCycle:
                    sign=-1.0)
         return r_mom, st(lv, lv.D, uv, base=f_cont, sign=-1.0)
 
-    # -- transfers -----------------------------------------------------------
-
-    def _restrict(self, k, r_mom, r_cont):
-        kind = self.transfers[k].kind
-        if kind == "penalty":
-            return r_mom, r_cont
-        Ruv, Rp = self.R[k]
-        if kind == "polynomial":
-            return self._gemm(Ruv, r_mom), self._gemm(Rp, r_cont)
-        return (self._geo(Ruv, r_mom, self.dims[k], True),
-                self._geo(Rp, r_cont, self.dims[k], True))
-
-    def _prolong(self, k, e_uv, e_p, base_uv=None, base_p=None):
-        """(base +) P e per component."""
-        kind = self.transfers[k].kind
-        if kind == "penalty":
-            return (e_uv if base_uv is None else base_uv + e_uv,
-                    e_p if base_p is None else base_p + e_p)
-        Puv, Pp = self.P[k]
-        if kind == "polynomial":
-            return self._gemm(Puv, e_uv, base_uv), self._gemm(Pp, e_p, base_p)
-        return (self._geo(Puv, e_uv, self.dims[k], False, base_uv),
-                self._geo(Pp, e_p, self.dims[k], False, base_p))
-
     # -- cycle ---------------------------------------------------------------
 
     def _coarse_solve(self, f_mom, f_cont, uv, p):
@@ -421,34 +467,3 @@ class SoAStokesVCycle:
             return self.from_soa(mom, self._stencil(lv, lv.D, uv))
 
         return matvec
-
-    # -- layout conversion ---------------------------------------------------
-
-    def to_soa(self, x):
-        """Global [all u; all v; all p] -> (uv (2, 2Nu, C), p (2, Np, C))."""
-        nj, ni = self.dims[-1]
-        n = nj * ni
-        nu = self.nu[-1]
-        x = x.to(device=self.device, dtype=self.dtype)
-        uv = _global_uv_to_elem(x[:2 * n * nu], n, nu).reshape(nj, ni, 2 * nu)
-        p = x[2 * n * nu:].reshape(nj, ni, self.npd[-1])
-        ev = rolled.parity_mask(nj, x.dtype, x.device)
-
-        def pack(v):
-            a, b = rolled.pack_colors(v, ev)
-            B = v.shape[-1]
-            return torch.stack([a.reshape(-1, B).T, b.reshape(-1, B).T]).contiguous()
-
-        return pack(uv), pack(p)
-
-    def from_soa(self, uv, p):
-        nj, ni = self.dims[-1]
-        ev = rolled.parity_mask(nj, uv.dtype, uv.device)
-
-        def unpack(v):
-            B = v.shape[1]
-            return rolled.unpack_colors(v[0].T.reshape(nj, ni // 2, B),
-                                        v[1].T.reshape(nj, ni // 2, B), ev).reshape(-1)
-
-        n, nu = nj * ni, self.nu[-1]
-        return torch.cat([_elem_uv_to_global(unpack(uv), n, nu), unpack(p)])

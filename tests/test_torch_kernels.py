@@ -1,12 +1,13 @@
 """The port's CUDA kernels (dgtpu_torch/csrc/soa_kernels.cu: K1, K3, K4,
-K5 and K6) against their plain torch versions, and the port's import
+K5, K6 and K7) against their plain torch versions, and the port's import
 hygiene.
 
 The kernels have no CPU mode: the tests marked ``cuda`` skip without a
 card and run on one with ``python -m pytest tests/test_torch_kernels.py``.
 Bar on the card: float32 kernel vs float32 plain version < 1e-5 relative to
 max|plain| (summation order and FMA contraction differ, so equality is not
-expected).
+expected); bfloat16 blocks are upconverted identically by both, so the same
+bar holds.
 """
 
 import ast
@@ -19,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from dgtpu_torch.ops import _kernels, soa
+from dgtpu_torch.ops import _kernels, soa, stream
 from dgtpu_torch.ops import stokes_soa as ss
+from dgtpu_torch.ops import stokes_stream as sst
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +39,7 @@ def cuda():
 def test_import_leaves_jax_out():
     code = ("import sys, dgtpu_torch, dgtpu_torch.api, dgtpu_torch.__main__, "
             "dgtpu_torch.convert, dgtpu_torch.ops.soa, dgtpu_torch.ops.stokes_soa, "
+            "dgtpu_torch.ops.stream, dgtpu_torch.ops.stokes_stream, "
             "dgtpu_torch.models.stokes; "
             "assert 'jax' not in sys.modules and 'dgtpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -82,6 +85,9 @@ def test_launchers_refuse_cpu_tensors():
                             x, x, 0, 2, False)
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.stencil_apply(torch.zeros(2, 5, 4, 4, 8), x, 2, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.multi_half_sweep(torch.zeros(2, 5, 4, 4, 8), torch.zeros(2, 4, 4, 8),
+                                  x, x, 4, 2, False)
 
 
 def _rand(rng, *shape, device="cpu"):
@@ -100,9 +106,9 @@ def _level(rng, B, nj, ni, periodic, device):
                                         device=device), nj, ni, periodic)
 
 
-def _close(kern, args):
-    got = kern(*args)
-    ref = {**soa.PLAIN, **ss.PLAIN}[kern](*args)
+def _close(kern, args, kwargs=None):
+    got = kern(*args, **(kwargs or {}))
+    ref = {**soa.PLAIN, **ss.PLAIN, **stream.PLAIN}[kern](*args)
     torch.cuda.synchronize()
     return float((got - ref).abs().max() / ref.abs().max())
 
@@ -240,3 +246,127 @@ def test_stokes_cycle_and_solve_on_the_card(cuda, tmp_path, monkeypatch):
     dg.solve()
     assert dg.solve_residual < 1e-10
     assert all(k.launches > 0 for k in ss.CYCLE_KERNELS)
+
+
+# (B, Nj, Ni): the 64x64 p5 finest level (64 tiles of 32 cells), a 4x4 p3
+# level (one tile), a 16x16 p2 level (4 tiles) and a p1 level
+SWEEP_SHAPES = [(36, 64, 64), (16, 4, 4), (9, 16, 16), (4, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("B, nj, ni", SWEEP_SHAPES)
+def test_multi_half_sweep_kernel(cuda, B, nj, ni, periodic, bf16):
+    """K7 against its plain version for n_half 2/4/8, from u and from zero,
+    with and without base, on the default grid and on grids of 1 and 4 CTAs
+    (the persistent grid strides over the tiles)."""
+    rng = np.random.default_rng(0)
+    lv = _level(rng, B, nj, ni, periodic, cuda)
+    blocks, Dinv = lv.blocks, lv.Dinv
+    if bf16:
+        S = torch.cat([Dinv[:, None], blocks[:, 1:]], dim=1).to(torch.bfloat16)
+        blocks, Dinv = S, S[:, 0]
+    C = nj * ni // 2
+    rhs, u, base = (_rand(rng, 2, B, C, device=cuda) for _ in range(3))
+    for n_half in (2, 4, 8):
+        for start, b in ((u, None), (None, None), (None, base), (u, base)):
+            args = (lv, blocks, Dinv, rhs, start, n_half, b)
+            for ctas in (None, 1, 4):
+                assert _close(stream.multi_half_sweep, args, dict(ctas=ctas)) < REL_TOL, \
+                    (n_half, start is None, b is None, ctas)
+
+
+@pytest.mark.cuda
+def test_multi_half_sweep_grid_limits(cuda):
+    """The default grid at 64x64 p5 is one CTA per tile, 64 CTAs, and fits
+    the card; a grid larger than the co-resident count raises."""
+    most = _kernels.coresident_ctas(36, False)
+    assert most >= 64
+    rng = np.random.default_rng(1)
+    lv = _level(rng, 36, 64, 64, False, cuda)
+    rhs = _rand(rng, 2, 36, 2048, device=cuda)
+    ok = stream.multi_half_sweep(lv, lv.blocks, lv.Dinv, rhs, None, 2, ctas=most)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ok).all()
+    with pytest.raises(RuntimeError, match="soa_multi_half_sweep launch failed"):
+        stream.multi_half_sweep(lv, lv.blocks, lv.Dinv, rhs, None, 2, ctas=most + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("B, nj, ni", [(36, 64, 64), (16, 8, 8), (4, 2, 2)])
+def test_stencil_apply_kernel_bf16_blocks(cuda, B, nj, ni, periodic):
+    """K5 with bfloat16 blocks: the streamed residual with
+    res_storage='bfloat16', and the matvec."""
+    rng = np.random.default_rng(0)
+    lv = _level(rng, B, nj, ni, periodic, cuda)
+    blk = lv.blocks.to(torch.bfloat16)
+    u, rhs = (_rand(rng, 2, B, nj * ni // 2, device=cuda) for _ in range(2))
+    assert _close(soa.stencil_apply, (lv, blk, u, rhs, -1.0)) < REL_TOL
+    assert _close(soa.stencil_apply, (lv, blk, u)) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_streamed_stokes_dg_pass_and_route_on_the_card(cuda, tmp_path, monkeypatch):
+    """K6 as the streamed DG pass at the 8x8 Stokes finest shapes against
+    dgtpu's composition (matvec_color of D, then the two DG-diagonal MACs),
+    then the 8x8 Stokes route through the streamed hybrid (budget: the
+    coarsest level) to 1e-10 with K5, K6 and K7 launched."""
+    import chip_smoke
+    import dgtpu_torch.api as tapi
+    from dgtpu_torch.settings import Settings
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    dg = tapi.DGFEM(device="cuda", settings=Settings(chip_smoke.stokes_params(8)),
+                    solve_multigrid=True)
+    sl = sst.StreamedStokesLevel(dg.levels[-1])
+    rng = np.random.default_rng(2)
+    Bu, Np, C = sl.lv.A.shape[2], sl.lv.G.shape[2], sl.lv.A.shape[4]
+    rhs, p, base = (_rand(rng, 2, Np, C, device=cuda) for _ in range(3))
+    g = _rand(rng, 2, Bu, C, device=cuda)
+    for color in (0, 1):
+        for b in (None, base):
+            got = sst.dg_pass(sl, rhs, p, g, color, b)
+            ref = sst.dg_pass_plain(sl, rhs, p, g, color, b)
+            torch.cuda.synchronize()
+            assert float((got - ref).abs().max() / ref.abs().max()) < REL_TOL
+    budget = ss.SoAStokesVCycle.device_bytes(dg.levels[:1], [])
+    monkeypatch.setattr(tapi, "stream_budget", lambda device: budget)
+    chip_smoke.reset_counts()
+    dg.solve()
+    assert dg.cycle_kind == "streamed Stokes hybrid" and dg.solve_residual < 1e-10
+    assert all(k.launches > 0 for k in ss.CYCLE_KERNELS[1:] + stream.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_streamed_hybrid_route_on_the_card(cuda, tmp_path, monkeypatch, storage):
+    """The 8x8 p=5 route through the streamed hybrid (budget: every level but
+    the finest): one hybrid cycle of kernels against the plain hybrid, then
+    the solve to 1e-10 with K7 launched."""
+    import dgtpu_torch.api as tapi
+    from dgtpu_torch.settings import Settings, load_params
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    params = load_params()
+    params["performance"]["precision"] = "mixed"
+    params["performance"]["block storage"] = storage
+    params["visualization"]["export"] = False
+    params["logging"]["loglevel"] = "ERROR"
+    dg = tapi.DGFEM(device="cuda", settings=Settings(params), solve_multigrid=True)
+    ops, dims = [l.op for l in dg.levels], [(l.Nj, l.Ni) for l in dg.levels]
+    budget = soa.SoAVCycle.device_bytes(ops[:-1], dims[:-1], dg.transfers[:-1],
+                                        with_coarse=False)
+
+    def cycle(**kw):
+        return stream.StreamedVCycle(ops, dg.transfers, dg.transfer_types,
+                                     dg.settings, dims, budget, **kw)
+
+    rhs = dg.levels[-1].rhs
+    u_k = cycle()(rhs, torch.zeros_like(rhs))
+    u_p = cycle(reference=True)(rhs, torch.zeros_like(rhs))
+    assert float((u_k - u_p).abs().max() / u_p.abs().max()) < REL_TOL
+    monkeypatch.setattr(tapi, "stream_budget", lambda device: budget)
+    stream.reset_launch_counts()
+    dg.solve()
+    assert dg.cycle_kind == "streamed hybrid" and dg.cut == len(dg.levels) - 1
+    assert dg.solve_residual < 1e-10 and stream.multi_half_sweep.launches > 0
