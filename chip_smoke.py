@@ -7,7 +7,8 @@ port builds, runs its CUDA kernels and solves on the card.
 
 Phases (each prints one line; any failure raises, so the exit code is not 0):
   1. the card (name and power limit from nvidia-smi);
-  2. build the CUDA kernels of dgtpu_torch/csrc/soa_kernels.cu with nvcc;
+  2. build the CUDA kernels of dgtpu_torch/csrc/soa_kernels.cu and
+     rolled_kernels.cu, one nvcc each, started together;
   3. each Poisson kernel (K1 half-sweep, K5 stencil apply as the residual,
      K3 small GEMM, K4 geometric transfer) against its plain torch version
      on the same inputs, at the 8x8 p=5 hierarchy's shapes and on the 4x4
@@ -44,7 +45,25 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
  16. marginal cycle times and launches per cycle, SoA cycle against the
      hybrids (64x64 Poisson float32 and bfloat16 storage, 32x32 Stokes),
      and per-call times of K7 and K5 with bfloat16 blocks beside their
-     plain versions.
+     plain versions;
+ 17. the rolled cycle's kernels (R1 half-sweep, R2 stencil apply, R3
+     transfer, R4 dense apply) against their plain versions at every shape
+     of the 8x8 p=5 hierarchy with geometric factors 8,4,2 (B 36, 16, 4;
+     8x8 down to 1x1), of the 4x4 O-grid hierarchy and on a synthetic
+     3-wide level;
+ 18. one whole rolled cycle on that 8x8 p=5 hierarchy, kernel path against
+     plain path;
+ 19. the mixed route through the rolled cycle: the CLI at 8x8 p=5 with
+     factors 8,4,2 (a 1x1 coarsest level, so no SoA cycle), held to dgtpu's
+     L2(u); the same with an F-cycle and the dense coarse inverse; and at
+     64x64 p=5 with factors 64,...,2 and an FMG seed, held to phase 6's
+     SoA-route solution;
+ 20. the full-precision routes on the card at 8x8 p=5: ``-m`` with
+     sequential and red-black smoothing and ``-d``, held to the mixed
+     route's L2(u); ``-s`` at 8x8 p=2;
+ 21. marginal rolled cycle times and launches per cycle at 8x8 and 64x64
+     beside the SoA cycle's, and per-call times of R1-R4 beside their plain
+     versions and bounds.
 The last lines are the kernels' JSON record (per kernel: launches on the
 main paths, worst error against the plain version, its time, the plain
 version's, the bound from bytes and operations, and a PyTorch call's time
@@ -53,7 +72,8 @@ where one computes the same function), the nvidia-smi line and
 the rest of the repository.
 
 ``--profile`` runs ``torch.profiler`` over the cycles of the four
-configurations and of the 64x64 streamed hybrids (kernel and plain paths:
+configurations, of the 64x64 streamed hybrids and of the rolled cycle at
+8x8 and 64x64 (kernel and plain paths:
 device-busy time, device ops per cycle, the top device ops) and over single
 calls of the SoA cycles' kernels at the finest levels' shapes (device us
 per call, bytes moved, GB/s).
@@ -62,6 +82,7 @@ per call, bytes moved, GB/s).
 import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -78,6 +99,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DGTPU_L2_8X8_P5 = 5.109734421089843e-06
 L2_REL_TOL = 1e-6          # port vs dgtpu, 8x8 p=5
 KERNEL_REL_TOL = 1e-5      # f32 kernel vs f32 plain, relative to max|plain|
+ROLLED_REL_TOL = 5e-6      # the same for the rolled kernels R1-R4
+# dgtpu's L2(u) of the mixed route at 8x8 p=5 with geometric factors 8,4,2
+# (six levels down to 1x1; its rolled cycle, 3 outer rounds), computed on a
+# CPU with the JAX reference package: the command above with
+# solver.multigrid.geometric_coarsening.coarsening_factors = "8,4,2"
+DGTPU_L2_8X8_P5_ROLLED = 5.10973442100966e-06
+SOLUTION_REL_TOL = 1e-8    # two solves of one discrete system, nodal values
 RES_TOL = 1e-10            # normalized residual of the refined solve
 
 # dgtpu's L2 errors of u, v and p for the Stokes route (p_u=2/p_p=1 with
@@ -286,11 +314,18 @@ def synthetic_ogrid_level(rng, Bu=18, Np=4, nj=4, ni=4):
 
 def plain_version(kern):
     """The plain torch version of a kernel wrapper."""
-    from dgtpu_torch.ops import soa, stream
+    from dgtpu_torch.ops import soa, stream, vcycle
     from dgtpu_torch.ops import stokes_soa as ss
     from dgtpu_torch.ops import stokes_stream as sst
-    return {**soa.PLAIN, **ss.PLAIN, **stream.PLAIN,
+    return {**soa.PLAIN, **ss.PLAIN, **stream.PLAIN, **vcycle.PLAIN,
             sst.dg_pass: sst.dg_pass_plain}[kern]
+
+
+def kernel_name(kern):
+    """A kernel wrapper's name in the records: the rolled cycle's carry a
+    ``rolled_`` prefix (two of them share a name with an SoA kernel)."""
+    from dgtpu_torch.ops import vcycle
+    return ("rolled_" if kern in vcycle.KERNELS else "") + kern.__name__
 
 
 def launched(kern):
@@ -315,7 +350,7 @@ def check_kernels(cases, label, worst):
         key = launched(kern)
         worst[key] = tuple(max(a, b) for a, b in zip(worst.get(key, (0.0, 0.0)),
                                                       (err, rel)))
-        print(f"[{label}] {kern.__name__:16s} shape {tuple(got.shape)}"
+        print(f"[{label}] {kernel_name(kern):20s} shape {tuple(got.shape)}"
               f"{' ' + str(kw[0]) if kw else ''}: max abs err {err:.3e}, rel {rel:.3e}",
               flush=True)
         if not rel < KERNEL_REL_TOL:
@@ -474,23 +509,24 @@ def stokes_phases(card, rng, worst):
 
 
 def all_kernels():
-    """Every kernel wrapper of the port: K1, K5, K3, K4, K6, K7."""
+    """Every kernel wrapper of the port: K1, K5, K3, K4, K6, K7, R1-R4."""
     from dgtpu_torch.ops import stokes_soa as ss
-    from dgtpu_torch.ops import stream
-    return ss.CYCLE_KERNELS + stream.KERNELS
+    from dgtpu_torch.ops import stream, vcycle
+    return ss.CYCLE_KERNELS + stream.KERNELS + vcycle.KERNELS
 
 
 def reset_counts():
     """Set the launch count of every kernel to 0."""
-    from dgtpu_torch.ops import soa, stream
+    from dgtpu_torch.ops import soa, stream, vcycle
     from dgtpu_torch.ops import stokes_soa as ss
     soa.reset_launch_counts()
     ss.reset_launch_counts()
     stream.reset_launch_counts()
+    vcycle.reset_launch_counts()
 
 
 def counts():
-    return {k.__name__: k.launches for k in all_kernels()}
+    return {kernel_name(k): k.launches for k in all_kernels()}
 
 
 # the kernels the Poisson hybrid route launches: the SoA subtree's four and K7
@@ -525,10 +561,32 @@ def nbytes(*tensors):
 def work(kern, args):
     """(bytes, float32 operations) that the function of one call must move
     and do: each input it reads once, each output written once."""
-    from dgtpu_torch.ops import soa, stream
+    from dgtpu_torch.ops import soa, stream, vcycle
     from dgtpu_torch.ops import stokes_soa as ss
     from dgtpu_torch.ops import stokes_stream as sst
     f32 = 4
+    if kern is vcycle.half_sweep:           # blocks, Dinv, rhs of the color's cells only
+        lv, rhs, u, color, *base = args
+        nj, ni, B = u.shape
+        active = (nj * ni + 1 - color) // 2
+        return (active * (5 * B * B + B) * f32 + nbytes(u, *base) + nbytes(u),
+                2 * 5 * B * B * active)
+    if kern is vcycle.stencil_apply:
+        lv, x, *base = args[:3]
+        return nbytes(lv.blocks, x, *base[:1]) + nbytes(x), 2 * lv.blocks.numel()
+    if kern is vcycle.transfer:
+        T, x, *rest = args
+        restrict = bool(rest) and rest[0]
+        base = rest[1] if len(rest) > 1 else None
+        b_out = T.shape[-2]
+        cells = x.shape[0] * x.shape[1]
+        if T.dim() == 3:
+            cells = cells // 4 if restrict else cells * 4
+        return (nbytes(T, x, base) + cells * b_out * f32,
+                2 * cells * b_out * T.shape[-1] * (4 if T.dim() == 3 and restrict else 1))
+    if kern is vcycle.dense_apply:
+        W, x = args
+        return nbytes(W, x) + nbytes(x), 2 * W.numel()
     if kern is sst.dg_pass:                 # K6 on the streamed level's view
         kern, args = ss.dg_half_sweep, (args[0].lv, *args[1:])
     if kern is soa.half_sweep:
@@ -619,6 +677,12 @@ def profile(card):
     for storage in ("float32", "bfloat16"):
         configs.append((f"Poisson 64x64 p5 hybrid {storage}", configs[1][1],
                         lambda dg, s=storage, **kw: hybrid_of(dg, l2_bytes, s, **kw), 20))
+    configs += [
+        ("Poisson 8x8 p5 rolled (factors 8,4,2)", lambda: hierarchy(settings_for(
+            "Rectangle_8X8_nPoly5.xyz", 5, factors="8,4,2")), rolled_cycle_of, 20),
+        ("Poisson 64x64 p5 rolled (factors 64,...,2)", lambda: hierarchy(settings_for(
+            "Rectangle_64X64_nPoly5.xyz", 5, factors="64,32,16,8,4,2", fmg=True)),
+         rolled_cycle_of, 20)]
     rand = _rand(np.random.default_rng(1))
     mb = lambda *ts: sum(t.numel() for t in ts) * 4 / 1e6   # noqa: E731
     for name, make, cycle, n in configs:
@@ -639,8 +703,8 @@ def profile(card):
                   f"{[(k[:40], v[0] / calls, round(v[1] / calls, 2)) for k, v in top]} "
                   f"({card})", flush=True)
         cyc = cycle(dg)
-        if not hasattr(cyc, "levels"):       # the hybrids: cycles only
-            continue
+        if not hasattr(cyc, "levels") or cycle is rolled_cycle_of:
+            continue                         # the hybrids and the rolled cycle: cycles only
         lv = cyc.levels[-1]
         if cycle is cycle_of:
             B, C = lv.blocks.shape[2], lv.blocks.shape[4]
@@ -767,6 +831,281 @@ def synthetic_soa_level(rng, B, nj, ni):
                     lane_masks(nj, ni, torch.float32, "cuda"), nj, ni, True)
 
 
+def rolled_cycle_of(dg, settings=None, **kw):
+    """The rolled cycle over ``dg``'s hierarchy, with ``settings`` in place
+    of ``dg``'s when given."""
+    import torch
+    from dgtpu_torch.ops.vcycle import RolledVCycle
+    dims = [(l.Nj, l.Ni) for l in dg.levels]
+    return RolledVCycle([l.op for l in dg.levels], dg.transfers, dg.transfer_types,
+                        settings or dg.settings, dims, dtype=torch.float32,
+                        device="cuda", **kw)
+
+
+def rolled_level_cases(lv, rand):
+    """(kernel, args) for R1 on both colors and R2 as matvec and residual,
+    each with and without a base, on one rolled level."""
+    from dgtpu_torch.ops import vcycle
+    shape = lv.Dinv.shape[:3]
+    rhs, u, base = rand(*shape), rand(*shape), rand(*shape)
+    cases = [(vcycle.stencil_apply, (lv, u)), (vcycle.stencil_apply, (lv, u, rhs, -1.0))]
+    for color in (0, 1):
+        cases += [(vcycle.half_sweep, (lv, rhs, u, color)),
+                  (vcycle.half_sweep, (lv, rhs, u, color, base))]
+    return cases
+
+
+def rolled_kernel_cases(cyc, rng):
+    """(kernel, args) at every shape the rolled cycle gives each kernel."""
+    from dgtpu_torch.ops import vcycle
+    rand = _rand(rng)
+    cases = []
+    for lv in cyc.levels:
+        cases += rolled_level_cases(lv, rand)
+    for k, (R, P) in enumerate(zip(cyc.R, cyc.P)):
+        if R is None:
+            continue
+        fine, coarse = cyc.levels[k + 1].Dinv.shape[:3], cyc.levels[k].Dinv.shape[:3]
+        cases += [(vcycle.transfer, (R, rand(*fine), True)),
+                  (vcycle.transfer, (P, rand(*coarse))),
+                  (vcycle.transfer, (P, rand(*coarse), False, rand(*fine)))]
+    if cyc.coarse_inv is not None:
+        cases.append((vcycle.dense_apply, (cyc.coarse_inv,
+                                           rand(*cyc.levels[0].Dinv.shape[:3]))))
+    return cases
+
+
+def synthetic_rolled_level(rng, B, nj, ni):
+    """A rolled level with random operands in every slot, so the wrapped
+    i-neighbors count as on an O-grid; with an odd Ni the seam joins two
+    cells of one color."""
+    import torch
+    from dgtpu_torch.ops import rolled
+    from dgtpu_torch.ops.vcycle import RolledLevel
+    rand = _rand(rng)
+    return RolledLevel(rand(nj, ni, 5, B, B), rand(nj, ni, B, B),
+                       rolled.color_masks(nj, ni, torch.float32, "cuda"))
+
+
+def write_paramfile(tmp, name, **overrides):
+    """A paramfile in ``tmp``: the shipped one with dotted-path overrides."""
+    import yaml
+    from dgtpu_torch.settings import load_params
+    params = load_params()
+    params["visualization"]["export"] = False
+    for path, value in overrides.items():
+        node = params
+        *keys, leaf = path.split(".")
+        for k in keys:
+            node = node[k]
+        node[leaf] = value
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(params, f)
+    return path
+
+
+# dgtpu's L2(u) of ``-m`` in full precision at 8x8 p=5 (the shipped
+# paramfile; it stops at the configured tolerance 1e-6, so its L2(u) sits
+# ~1e-4 relative off the converged 5.1097e-06), sequential (8 cycles) and
+# red-black (7 cycles) smoothing, computed on a CPU with the JAX reference
+# package: python -m dgtpu -m, and the same with
+# performance.smoother_parallelization: redblack
+DGTPU_L2_8X8_P5_FULL = {"sequential": (5.109094091008355e-06, 8),
+                        "redblack": (5.109887574830018e-06, 7)}
+FACTORS = "solver.multigrid.geometric coarsening.coarsening factors"
+
+
+def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
+    """Phases 17-21: the rolled cycle and the full-precision routes.
+    ``ogrid``: the assembled 4x4 O-grid DGFEM; ``u_soa64``: phase 6's nodal
+    solution of the 64x64 SoA route; ``soa_ms``: phase 7's marginal SoA cycle
+    times by configuration.  Returns the launch counts by path and
+    {kernel: (args, ms, plain ms)} at the 64x64 p5 shapes."""
+    import torch
+    from dgtpu_torch.__main__ import main as cli
+    from dgtpu_torch.ops import soa, vcycle
+
+    # -- 17: R1-R4 against their plain versions ------------------------------
+    flagship = hierarchy(settings_for("Rectangle_8X8_nPoly5.xyz", 5, factors="8,4,2"))
+    dims = [(l.Nj, l.Ni) for l in flagship.levels]
+    if dims != [(1, 1), (2, 2), (4, 4), (8, 8), (8, 8), (8, 8)]:
+        raise AssertionError(f"unexpected 8,4,2 hierarchy: {dims}")
+    cyc8 = rolled_cycle_of(flagship)
+    direct_settings = copy.deepcopy(flagship.settings)
+    direct_settings.solver.multigrid.coarse_grid_solver = "direct"
+    direct_settings.solver.multigrid.cycle_type = "F"
+    cyc8_direct = rolled_cycle_of(flagship, direct_settings)
+    for name, cases in (
+            ("8x8 p5 factors 8,4,2", rolled_kernel_cases(cyc8, rng)),
+            ("direct coarse", rolled_kernel_cases(cyc8_direct, rng)[-1:]),
+            ("4x4 O-grid p2", rolled_kernel_cases(rolled_cycle_of(ogrid), rng)),
+            ("synthetic 2x3", rolled_level_cases(synthetic_rolled_level(rng, 16, 2, 3),
+                                                 _rand(rng))),
+            ("synthetic 3x1", rolled_level_cases(synthetic_rolled_level(rng, 36, 3, 1),
+                                                 _rand(rng)))):
+        check_kernels(cases, f"17 {name}", worst)
+    for kern in vcycle.KERNELS:
+        if not worst[kern][1] <= ROLLED_REL_TOL:
+            raise AssertionError(f"{kernel_name(kern)} is {worst[kern][1]:.3e} from its "
+                                 f"plain version (bar {ROLLED_REL_TOL:g})")
+
+    # -- 18: one whole rolled cycle, kernel path vs plain path ---------------
+    rhs = flagship.levels[-1].rhs
+    for name, st in (("V, smoother coarse", None), ("F, direct coarse", direct_settings)):
+        u_k = rolled_cycle_of(flagship, st)(rhs, torch.zeros_like(rhs))
+        u_p = rolled_cycle_of(flagship, st, reference=True)(rhs, torch.zeros_like(rhs))
+        rel = float((u_k - u_p).abs().max() / u_p.abs().max())
+        print(f"[18] one 8x8 p5 rolled cycle ({name}) from zero: kernel vs plain max rel "
+              f"err {rel:.3e}", flush=True)
+        if not rel < KERNEL_REL_TOL:
+            raise AssertionError(f"the rolled kernel cycle disagrees with the plain "
+                                 f"one: {rel:.3e}")
+
+    # -- 19: the mixed route through the rolled cycle ------------------------
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        routes = {
+            "rolled_8x8": write_paramfile(tmp, "rolled.yml", **{FACTORS: "8,4,2"}),
+            "rolled_8x8_F_direct": write_paramfile(tmp, "rolled_f.yml", **{
+                FACTORS: "8,4,2", "solver.multigrid.cycle type": "F",
+                "solver.multigrid.coarse grid solver": "direct"}),
+        }
+        for name, path in routes.items():
+            reset_counts()
+            dg = cli(["-m", "--precision", "mixed", "--silent", "--paramfile", path])
+            torch.cuda.synchronize()
+            paths[name] = counts()
+            l2_rel = abs(dg.L2_error_u - DGTPU_L2_8X8_P5_ROLLED) / DGTPU_L2_8X8_P5_ROLLED
+            print(f"[19] {name} CLI route ({len(dg.levels)} levels): {dg.cycle_kind}, "
+                  f"residual {dg.solve_residual:.3e} (normalized), {dg.outer_rounds} outer "
+                  f"rounds, L2(u) {dg.L2_error_u:.14e} (dgtpu {DGTPU_L2_8X8_P5_ROLLED:.14e}, "
+                  f"rel {l2_rel:.2e}), solve {dg.solve_seconds:.3f} s; launches "
+                  f"{ {k: v for k, v in paths[name].items() if v} }", flush=True)
+            if dg.cycle_kind != "rolled":
+                raise AssertionError(f"{name} ran the {dg.cycle_kind} cycle")
+            if not dg.solve_residual < RES_TOL or not l2_rel < L2_REL_TOL:
+                raise AssertionError(f"{name} missed its bars")
+    l2_mixed = dg.L2_error_u
+    rolled_names = [kernel_name(k) for k in vcycle.KERNELS]
+    soa_names = [k.__name__ for k in soa.KERNELS]
+    not_launched(paths["rolled_8x8"], rolled_names[:3], "the rolled 8x8 route")
+    not_launched(paths["rolled_8x8_F_direct"], rolled_names, "the rolled F-cycle route")
+
+    t0 = time.perf_counter()
+    dg64 = hierarchy(settings_for("Rectangle_64X64_nPoly5.xyz", 5,
+                                  factors="64,32,16,8,4,2", fmg=True))
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    dg64.solve()
+    torch.cuda.synchronize()
+    paths["rolled_64x64"] = counts()
+    sol = float(abs(dg64.u_nodal - u_soa64).max() / abs(u_soa64).max())
+    print(f"[19] 64x64 p5 route (factors 64,32,16,8,4,2, FMG; {len(dg64.levels)} levels "
+          f"down to 1x1): {dg64.cycle_kind}, residual {dg64.solve_residual:.3e} "
+          f"(normalized), {dg64.outer_rounds} outer rounds, L2(u) {dg64.L2_error_u:.9e}, "
+          f"nodal u against phase 6's SoA route {sol:.2e} relative, setup {setup_s:.2f} s, "
+          f"solve {dg64.solve_seconds:.3f} s; launches "
+          f"{ {k: v for k, v in paths['rolled_64x64'].items() if v} }", flush=True)
+    if dg64.cycle_kind != "rolled" or not dg64.solve_residual < RES_TOL:
+        raise AssertionError("the 64x64 rolled route missed its bars")
+    if not sol < SOLUTION_REL_TOL:
+        raise AssertionError(f"the 64x64 rolled solution differs from the SoA route's: "
+                             f"{sol:.3e}")
+    not_launched(paths["rolled_64x64"], rolled_names[:3], "the rolled 64x64 route")
+    for name, launches in paths.items():
+        if any(launches[n] for n in soa_names):
+            raise AssertionError(f"{name} launched SoA kernels: {launches}")
+
+    # -- 20: the full-precision routes on the card ---------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        for strategy, (l2_ref, n_ref) in DGTPU_L2_8X8_P5_FULL.items():
+            path = write_paramfile(
+                tmp, f"{strategy}.yml",
+                **{"performance.smoother_parallelization": strategy})
+            dg = cli(["-m", "--silent", "--paramfile", path])
+            torch.cuda.synchronize()
+            tol = float(dg.settings.solver.multigrid.tolerance)
+            rel = abs(dg.L2_error_u - l2_ref) / l2_ref
+            print(f"[20] -m, precision full, {strategy} smoothing, 8x8 p5: {dg.cycles} "
+                  f"cycles (dgtpu {n_ref}), residual {dg.solve_residual:.3e} (tolerance "
+                  f"{tol:g}), L2(u) {dg.L2_error_u:.12e} (dgtpu {l2_ref:.12e}, rel "
+                  f"{rel:.2e}; the mixed route's {l2_mixed:.12e}), solve "
+                  f"{dg.solve_seconds:.3f} s with the solver's setup, "
+                  f"{dg.solve_seconds / dg.cycles * 1e3:.2f} ms per cycle ({card})",
+                  flush=True)
+            if dg.levels[-1].rhs.device.type != "cuda":
+                raise AssertionError("the full-precision route left the card")
+            if dg.cycles != n_ref or not dg.solve_residual < tol or not rel < L2_REL_TOL:
+                raise AssertionError(f"the full-precision {strategy} route missed its bars")
+        dg = cli(["-d", "--silent"])
+        torch.cuda.synchronize()
+        rel = abs(dg.L2_error_u - l2_mixed) / l2_mixed
+        print(f"[20] -d, 8x8 p5: residual {dg.residual:.3e} (L2), L2(u) "
+              f"{dg.L2_error_u:.12e} (rel to the mixed route {rel:.2e}), solve "
+              f"{dg.solve_seconds:.3f} s ({card})", flush=True)
+        if not rel < L2_REL_TOL:
+            raise AssertionError("the direct solve's L2(u) differs from the mixed route's")
+        dg = cli(["-s", "--smoother", "block_gauss_seidel", "--silent", "-f",
+                  "Rectangle_8X8_nPoly2.xyz", "--p-grid", "2", "--p-solution", "2"])
+        torch.cuda.synchronize()
+        print(f"[20] -s block_gauss_seidel (sequential sweeps by wavefronts), 8x8 p2: "
+              f"status {dg.smoother_status} after {dg.sweeps} sweeps, residual "
+              f"{dg.residuals[-1]:.3e} (normalized), solve {dg.solve_seconds:.3f} s with "
+              f"the setup, {dg.solve_seconds / dg.sweeps * 1e3:.2f} ms per symmetric sweep "
+              f"({card})",
+              flush=True)
+        if dg.smoother_status != 0:
+            raise AssertionError("the smoother solve did not converge")
+
+    # -- 21: timings ---------------------------------------------------------
+    timed = {}
+    for name, dg, k in (("8x8 p5", flagship, 5), ("64x64 p5", dg64, 5)):
+        rhs = dg.levels[-1].rhs.to(torch.float32)
+        cyc = rolled_cycle_of(dg)
+        reset_counts()
+        cyc(rhs, torch.zeros_like(rhs))
+        torch.cuda.synchronize()
+        per_cycle = {n: c for n, c in counts().items() if c}
+        kern_ms = [marginal_ms(cyc, rhs, k)]
+        plain_ms = marginal_ms(rolled_cycle_of(dg, reference=True), rhs, k)
+        kern_ms.append(marginal_ms(cyc, rhs, k))
+        size = cyc.device_bytes()
+        print(f"[21] {name} marginal rolled cycle time ({len(dg.levels)} levels): kernels "
+              f"{kern_ms[0]:.4f}, {kern_ms[1]:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
+              f"{size / HBM_BYTES_PER_S * 1e3:.4f} ms ({size / 1e6:.3f} MB of operands, "
+              f"device_bytes); the SoA cycle of phase 7 ({name}, its own hierarchy) "
+              f"{soa_ms[name]:.4f} ms; kernel launches per cycle "
+              f"{sum(per_cycle.values())} {per_cycle} ({card})", flush=True)
+        lv = cyc.levels[-1]
+        rand = _rand(rng)
+        shape = lv.Dinv.shape[:3]
+        r, u = rand(*shape), rand(*shape)
+        top = len(cyc.levels) - 2
+        geo = max(i for i, t in enumerate(cyc.transfers) if t.kind == "geometric")
+        shape0 = cyc.levels[0].Dinv.shape[:3]
+        calls = {
+            "R1 half-sweep, color 1": (vcycle.half_sweep, (lv, r, u, 1)),
+            "R2 residual": (vcycle.stencil_apply, (lv, u, r, -1.0)),
+            "R3 polynomial P e + u": (vcycle.transfer, (
+                cyc.P[top], rand(*cyc.levels[top].Dinv.shape[:3]), False, u)),
+            "R3 finest geometric restriction": (vcycle.transfer, (
+                cyc.R[geo], rand(*cyc.levels[geo + 1].Dinv.shape[:3]), True)),
+            "R4 dense inverse of the 1x1 coarsest level": (vcycle.dense_apply, (
+                rand(math.prod(shape0), math.prod(shape0)), rand(*shape0))),
+        }
+        for label, (kern, args) in calls.items():
+            ms = cuda_ms(lambda: kern(*args), 200)
+            p_ms = cuda_ms(lambda: plain_version(kern)(*args), 50)
+            b_ms, b_by = bound(kern, args)
+            print(f"[21] {label} at {name} finest shapes: kernel {ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
+                  f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
+            if name == "64x64 p5":
+                timed.setdefault(kern, (args, ms, p_ms))
+    return paths, timed
+
+
 def check_stokes_errors(dg, n):
     """L2(u, v, p) against dgtpu's pinned values at 1e-6 relative; returns
     the relative differences."""
@@ -783,7 +1122,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from dgtpu_torch.ops import _kernels, soa
+    from dgtpu_torch.ops import _kernels, soa, vcycle
     from dgtpu_torch.ops import stokes_soa as ss
     from dgtpu_torch.__main__ import main as cli
 
@@ -794,9 +1133,11 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    _kernels.library()
-    print(f"[2] built {os.path.relpath(_kernels.SOURCE, REPO)} with nvcc for "
-          f"sm_90a in {time.perf_counter() - t0:.2f} s", flush=True)
+    _kernels.build_all()
+    _kernels.library(), _kernels.rolled_library()
+    print(f"[2] built {os.path.relpath(_kernels.SOURCE, REPO)} and "
+          f"{os.path.relpath(_kernels.ROLLED_SOURCE, REPO)} with nvcc for sm_90a, one "
+          f"process each, in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--profile" in sys.argv[1:]:
         profile(card)
         print(card)
@@ -896,9 +1237,10 @@ def main():
                              f"route's: {sol_soa:.3e}")
 
     # -- 7: timings of the SoA cycle -----------------------------------------
+    soa_ms = {}
     for name, dg in (("8x8 p5", flagship), ("64x64 p5", dg64)):
         rhs = dg.levels[-1].rhs.to(torch.float32)
-        kern_ms = marginal_ms(cycle_of(dg), rhs)
+        soa_ms[name] = kern_ms = marginal_ms(cycle_of(dg), rhs)
         plain_ms = marginal_ms(cycle_of(dg, reference=True), rhs)
         size, b_ms = cycle_bound(dg)
         print(f"[7] {name} marginal SoA cycle time: kernels {kern_ms:.4f} ms, plain "
@@ -990,7 +1332,8 @@ def main():
         raise AssertionError("the 32x32 Stokes route did not stream two levels")
     if not dg32.solve_residual < RES_TOL:
         raise AssertionError("the 32x32 Stokes hybrid solve did not reach 1e-10")
-    not_launched(launches32h, list(launches32h), "the 32x32 Stokes hybrid route")
+    not_launched(launches32h, [k.__name__ for k in ss.CYCLE_KERNELS + stream.KERNELS],
+                 "the 32x32 Stokes hybrid route")
 
     # -- 16: SoA cycle against the hybrids; K7 and bfloat16 K5 per call ------
     for name, h in (("float32", hyb32), ("bfloat16", hyb16)):
@@ -1034,10 +1377,14 @@ def main():
             if kern is stream.multi_half_sweep:
                 timed.setdefault(kern, (args, ms, plain_ms))
 
+    rolled_paths, rolled_ms = rolled_phases(card, rng, worst, ogrid, u_soa, soa_ms)
+    timed.update(rolled_ms)
+
     paths = {"poisson_8x8": launches, "poisson_64x64_hybrid": launches64,
              "poisson_64x64_hybrid_bf16": launches64_bf16,
              "stokes_8x8": stokes_launches, "stokes_32x32": stokes_launches32,
-             "stokes_32x32_hybrid": launches32h}
+             "stokes_32x32_hybrid": launches32h, **rolled_paths}
+    rolled_site = "dgtpu/ops/pallas_vcycle.py:326"
     replaces = {
         soa.half_sweep: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739",
         soa.stencil_apply: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739, "
@@ -1046,25 +1393,34 @@ def main():
         soa.geo_transfer: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739",
         ss.dg_half_sweep: "dgtpu/ops/pallas_stokes.py:739, dgtpu/ops/pallas_stream.py:496",
         stream.multi_half_sweep: "dgtpu/ops/pallas_stream.py:315",
+        **{k: rolled_site for k in vcycle.KERNELS},
     }
     record = []
     for kern in all_kernels():
-        by_path = {p: c.get(kern.__name__, 0) for p, c in paths.items()}
+        by_path = {p: c.get(kernel_name(kern), 0) for p, c in paths.items()}
         args, ms, plain_ms = timed[kern]
         b_ms, b_by = bound(kern, args)
         library_ms = None
         if kern is soa.small_gemm:
             W, x = args[:2]
             library_ms = cuda_ms(lambda: torch.matmul(W, x), 200)
-        record.append({"name": kern.__name__, "route": "cuda",
-                       "source": os.path.relpath(_kernels.SOURCE, REPO),
+        elif kern is vcycle.transfer:        # P e + u per cell, as one addmm
+            T, x, _, base = args
+            library_ms = cuda_ms(lambda: torch.addmm(base.flatten(0, 1), x.flatten(0, 1),
+                                                     T.T), 200)
+        elif kern is vcycle.dense_apply:
+            W, x = args
+            library_ms = cuda_ms(lambda: torch.mv(W, x.reshape(-1)), 200)
+        source = _kernels.ROLLED_SOURCE if kern in vcycle.KERNELS else _kernels.SOURCE
+        record.append({"name": kernel_name(kern), "route": "cuda",
+                       "source": os.path.relpath(source, REPO),
                        "replaces": replaces[kern], "launches": sum(by_path.values()),
                        "launches_by_path": by_path, "max_abs_err": worst[kern][0],
                        "max_rel_err": worst[kern][1],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": library_ms})
         if record[-1]["launches"] == 0:
-            raise AssertionError(f"{kern.__name__} was launched by no main path")
+            raise AssertionError(f"{kernel_name(kern)} was launched by no main path")
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -1,11 +1,15 @@
 """CLI entry point — dgtpu's flag surface plus ``--device``.
 
-    python -m dgtpu_torch -m --precision mixed [--device cuda|cpu] [options]
+    python -m dgtpu_torch -m [--precision full|mixed] [--device cuda|cpu] [options]
+    python -m dgtpu_torch -d
+    python -m dgtpu_torch -s --smoother block_gauss_seidel
 
-The mixed-precision multigrid routes are ported: Poisson, and global-order
-Stokes with distributive-GS smoothing (``problem.type: Stokes`` in the
-paramfile); any other solver or option raises NotImplementedError naming
-its ROADMAP item.
+Ported for Poisson: the multigrid in full precision (the paramfile's
+default) and in mixed precision, the direct solve and the stand-alone
+smoother solve; for global-order Stokes with distributive-GS smoothing
+(``problem.type: Stokes`` in the paramfile) the mixed-precision multigrid.
+Any other solver or option raises NotImplementedError naming its ROADMAP
+item.
 """
 
 import argparse
@@ -59,8 +63,9 @@ def build_parser():
     parser.add_argument("--paramfile", type=str, help="alternate paramfile.yml")
     parser.add_argument("--precision", type=str, default=None,
                         choices=("full", "mixed"),
-                        help="multigrid precision: mixed (float32 SoA cycles "
-                             "+ float64 defect refinement) is the ported route")
+                        help="multigrid precision: full (float64 cycles) or "
+                             "mixed (float32 cycles of CUDA kernels + float64 "
+                             "defect refinement); default: the paramfile's")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the solve (default cuda; a CPU "
                              "run needs --device cpu)")

@@ -1,15 +1,17 @@
-"""DGFEM orchestrator — the port of ``dgtpu/api.py`` for the mixed-precision
-multigrid routes: Poisson, and global-order Stokes with distributive-GS
-smoothing.
+"""DGFEM orchestrator — the port of ``dgtpu/api.py``: for Poisson the
+multigrid (full and mixed precision), direct and smoother solves, for
+global-order Stokes with distributive-GS smoothing the mixed-precision
+multigrid.
 
 Builds settings + manufactured solution, reads the grid, constructs the
 multigrid hierarchy (penalty / polynomial / geometric coarsening) with its
-transfers, assembles every level in float64 on the chosen device, solves
-with float32 SoA cycles inside float64 defect correction (optionally seeded
-by an FMG pass; Stokes retries with GMRES-wrapped cycles when the plain
-refinement stalls), and post-processes: residual norms, the Stokes pressure
-mean shift, modal->nodal values, L1/L2 MMS errors, VTK export and
-``summary.txt`` in the reference's schema.
+transfers (a single level for the direct and smoother solves), assembles
+every level in float64 on the chosen device, solves, and post-processes:
+residual norms, the Stokes pressure mean shift, modal->nodal values, L1/L2
+MMS errors, VTK export and ``summary.txt`` in the reference's schema.  The
+mixed-precision route runs float32 cycles (SoA, streamed hybrid or rolled)
+inside float64 defect correction, optionally seeded by an FMG pass; Stokes
+retries with GMRES-wrapped cycles when the plain refinement stalls.
 
 Every branch of dgtpu's orchestrator that this slice does not port raises
 NotImplementedError naming its ROADMAP item; nothing falls back to another
@@ -31,13 +33,18 @@ from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        StokesPolynomialTransfer, assemble_stokes,
                                        pressure_mean_shift,
                                        reorder_global_to_local)
+from dgtpu_torch.ops.smoothers import element_colors
 from dgtpu_torch.ops.soa import SoAVCycle
 from dgtpu_torch.ops.stokes_soa import _DGS, SoAStokesVCycle
 from dgtpu_torch.ops.stokes_stream import StreamedStokesVCycle
 from dgtpu_torch.ops.stream import StreamedVCycle
 from dgtpu_torch.ops.transfer import make_transfer
+from dgtpu_torch.ops.vcycle import RolledVCycle
 from dgtpu_torch.settings import Settings, load_params
+from dgtpu_torch.solvers.direct import solve_direct
+from dgtpu_torch.solvers.multigrid import MultigridSolver
 from dgtpu_torch.solvers.refinement import make_refined_solver
+from dgtpu_torch.solvers.relaxation_driver import residual_tracked_smoother
 from dgtpu_torch.utils.logger import Logger
 from dgtpu_torch.utils.norms import lp_norm
 from dgtpu_torch.utils.timer import Timer, synchronize
@@ -57,17 +64,20 @@ def _unsupported(settings, method):
     s = settings
     mg = s.solver.multigrid
     perf = getattr(s, "performance", None)
-    if method != "multigrid":
+    if method not in ("multigrid", "direct", "smoother"):
         return f"solver method {method!r}", \
-            "Queue 1 items 8 and 11 (the other solver routes)"
-    if str(getattr(perf, "precision", "full")) != "mixed":
-        return "performance.precision: full", \
-            "Queue 1 item 8 (full-precision generic multigrid)"
-    if int(getattr(perf, "n_shards", 1) or 1) > 1:
+            "Queue 1 item 11 (the other solver routes)"
+    if int(getattr(perf, "n_shards", 1) or 1) > 1 and method == "multigrid":
         return "performance.n_shards > 1", "Queue 1 item 12 (multi-GPU)"
     if s.problem.type == "Stokes":
         if s.solution.ordering != "global":
             return "local-ordering Stokes", "Queue 1 item 9 (local ordering)"
+        if method != "multigrid":
+            return f"the Stokes {method} solve", \
+                "Queue 1 item 9 (Stokes outside the mixed multigrid route)"
+        if str(getattr(perf, "precision", "full")) != "mixed":
+            return "full-precision Stokes multigrid", \
+                "Queue 1 item 9 (Stokes smoothers of the generic multigrid)"
         for kind in ("penalty_parameter", "polynomial", "geometric"):
             node = getattr(mg, f"{kind}_coarsening")
             if not node.enabled:
@@ -77,7 +87,8 @@ def _unsupported(settings, method):
                     return (f"Stokes smoother {side.smoother!r}",
                             "Queue 1 item 9 (Stokes smoothers other than "
                             "distributive GS)")
-    if mg.geometric_coarsening.enabled and mg.geometric_coarsening.use_FVM:
+    if method == "multigrid" and mg.geometric_coarsening.enabled \
+            and mg.geometric_coarsening.use_FVM:
         return "an FVM coarse level", "Queue 1 item 11 (models/fvm.py)"
     if s.caching.enabled:
         return "caching.enabled", "Queue 1 item 5 (utils/caching.py)"
@@ -195,7 +206,10 @@ class DGFEM:
         self.levels = []
         self.transfers = []
         self.transfer_types = []
-        self._build_multigrid_hierarchy()
+        if s.solver.method == "multigrid":
+            self._build_multigrid_hierarchy()
+        else:
+            self.levels.append(self._level(self.P_sol, self.sigma))
         for idx, lvl in enumerate(self.levels):
             self.logger.debug(
                 f"grid number {idx+1}: P_grid={lvl.P_grid}, P_sol={lvl.P_sol}, "
@@ -289,7 +303,8 @@ class DGFEM:
             else:
                 geo_transfers = [make_transfer(
                     "geometric", p_fine=self.levels[k].P_sol["u"], cf=2,
-                    device=dev) for k in range(len(coarse))]
+                    device=dev, Ni_c=self.levels[k].Ni, Nj_c=self.levels[k].Nj)
+                    for k in range(len(coarse))]
             self.transfers[0:0] = geo_transfers
             self.transfer_types[0:0] = ["geometric"] * len(geo_transfers)
 
@@ -308,26 +323,76 @@ class DGFEM:
     # ------------------------------------------------------------------ solve
 
     def solve(self):
+        s = self.settings
+        method = s.solver.method
         finest = self.levels[-1]
-        self.logger.debug("Solving with multigrid method ...")
+        self.logger.debug(f"Solving with {method} method ...")
         with Timer() as t:
-            u_modal, res, n = self._solve_multigrid_mixed(finest)
+            if method == "direct":
+                u_modal = solve_direct(finest.op, finest.rhs)
+            elif method == "smoother":
+                u_modal = self._solve_smoother(finest)
+            elif str(getattr(s.performance, "precision", "full")) == "mixed":
+                u_modal, res, n = self._solve_multigrid_mixed(finest)
+                self.solve_residual, self.outer_rounds = res, n
+            else:
+                u_modal, res, n = self._solve_multigrid_full(finest)
+                self.solve_residual, self.cycles = res, n
             synchronize(u_modal)
         self.solve_seconds = t.elapsed()
-        self.solve_residual, self.outer_rounds = res, n
-        self.logger.info(f"multigrid: {int(n)} outer rounds, final normalized "
-                         f"residual {float(res):.6e}")
-        self._save_residual_history()
-        self.logger.info(f"Solving with multigrid method took {t.elapsed():.4g} seconds")
+        if method == "multigrid":
+            self.logger.info(f"multigrid: {int(n)} cycles or outer rounds, final "
+                             f"normalized residual {float(res):.6e}")
+            self._save_residual_history("multigrid")
+        self.logger.info(f"Solving with {method} method took {t.elapsed():.4g} seconds")
         return self._postprocess(u_modal)
+
+    def _solve_multigrid_full(self, finest):
+        """Full-precision multigrid: float64 cycles of the generic
+        ``MultigridSolver`` with the configured smoothers (sequential or
+        red-black, ``performance.smoother_parallelization``) to
+        ``solver.multigrid.tolerance``."""
+        colors = [element_colors(l.Ni, l.Nj, self.device) for l in self.levels]
+        self.mg = MultigridSolver([l.op for l in self.levels], self.transfers,
+                                  self.transfer_types, self.settings, colors=colors)
+        u, res, n, hist = self.mg.solve(finest.rhs)
+        self.residuals = [r for r in hist if math.isfinite(r)]
+        self.cycle_kind = "full precision"
+        return u, res, n
+
+    def _solve_smoother(self, finest):
+        """The stand-alone smoother solve (``-s --smoother NAME``): symmetric
+        sweeps until the residual drops by 6 orders, diverges or 1000 sweeps
+        pass (the reference's cap, relaxation.py:198)."""
+        s = self.settings
+        name = getattr(s.solver, "smoother", "block_gauss_seidel")
+        u, hist, n, status = residual_tracked_smoother(
+            finest.op, finest.rhs, name=name, direction="symmetric",
+            max_iterations=1000,
+            strategy=getattr(s.performance, "smoother_parallelization", "sequential"),
+            colors=element_colors(finest.Ni, finest.Nj, self.device))
+        self.residuals = [r for r in hist if math.isfinite(r)]
+        self.sweeps, self.smoother_status = n, status
+        self._save_residual_history("relaxation")
+        if status == 0:
+            self.logger.info(f"Residual reduced by 6 orders in {n} sweeps")
+        elif status == 2:
+            self.logger.error(f"smoother diverged after {n} sweeps "
+                              f"(normalized residual > 1e10 or non-finite)")
+        else:
+            self.logger.warning(f"smoother hit the iteration cap after {n} sweeps "
+                                f"without converging")
+        return u
 
     def _solve_multigrid_mixed(self, finest):
         """Mixed-precision multigrid: float32 cycles (the CUDA kernels on a
         GPU) inside float64 defect correction, optionally seeded by the FMG
         guess (``solver.multigrid.full_multigrid``).  The cycle is dgtpu's
-        four-way choice (``api.py:489-518``): the SoA cycle while its
-        hierarchy's device bytes fit ``stream_budget`` (the card's L2),
-        else the streamed hybrid, for Poisson and for Stokes.  When the plain
+        choice (``api.py:489-535``): the SoA cycle while its hierarchy's
+        device bytes fit ``stream_budget`` (the card's L2), else the
+        streamed hybrid, for Poisson and for Stokes; for Poisson the rolled
+        cycle where neither can be built (an odd Ni on some level, an
+        F-cycle past the budget).  When the plain
         refinement stalls and the cycle has a matvec (the Stokes cycles:
         deep hierarchies push the stand-alone contraction past 1), the
         refinement retries with GMRES(16)-wrapped cycles (``api.py:557-578``).
@@ -338,10 +403,6 @@ class DGFEM:
         # the route targets at least the 1e-10 parity residual
         tol = min(float(mg.tolerance), 1e-10)
         dims = [(l.Nj, l.Ni) for l in self.levels]
-        if any(ni % 2 for _, ni in dims):
-            raise NotImplementedError(
-                "an odd Ni on some level: dgtpu runs the rolled-layout cycle "
-                "there, which is not ported yet (ROADMAP Queue 1 item 8)")
         stokes = "p" in self.vars
         ops = [l.op for l in self.levels]
         coarse = mg.coarse_grid_solver in ("direct", "amg")
@@ -375,11 +436,11 @@ class DGFEM:
                 raise NotImplementedError(
                     f"mixed precision: the Stokes cycle is unavailable ({e}); dgtpu "
                     "runs full precision here, not ported yet (ROADMAP Queue 1 "
-                    "item 8)") from e
-            raise NotImplementedError(
-                f"mixed precision: the SoA cycles are unavailable ({e}); dgtpu "
-                "falls back to the rolled XLA cycle here, not ported yet (ROADMAP "
-                "Queue 1 item 8, Queue 2 item 7)") from e
+                    "item 9)") from e
+            self.logger.info(f"SoA cycle unavailable ({e}); running the rolled cycle")
+            cycle = RolledVCycle(ops, self.transfers, self.transfer_types, s, dims,
+                                 **common)
+            kind, held = "rolled", cycle.device_bytes()
         self.cycle_kind, self.cut = kind, getattr(cycle, "cut", None)
         self.logger.info(f"inner cycle: {kind}, device bytes {held} against the "
                          f"budget {budget}, cut {self.cut}")
@@ -417,15 +478,17 @@ class DGFEM:
                 f"(tolerance {tol:g})")
         return u, res, n
 
-    def _save_residual_history(self):
+    def _save_residual_history(self, kind):
         """Residual history as .npy (the reference pickles it, solver.py:128-138),
-        under the port's own directory so dgtpu's histories stay apart."""
+        under the port's own directory so dgtpu's histories stay apart.
+        ``kind``: 'multigrid' or 'relaxation'."""
         lvl = self.levels[-1]
-        path = os.path.join(OUTPUT_ROOT, "postprocessing", "dgtpu_torch",
-                            "multigrid")
+        path = os.path.join(OUTPUT_ROOT, "postprocessing", "dgtpu_torch", kind)
         os.makedirs(path, exist_ok=True)
         name = (f"residuals_{self.settings.problem.type}_{lvl.Ni}X{lvl.Nj}"
-                f"_nPoly{lvl.P_grid}_" + "_".join(sorted(set(self.transfer_types))))
+                f"_nPoly{lvl.P_grid}")
+        if kind == "multigrid":
+            name += "_" + "_".join(sorted(set(self.transfer_types)))
         name += "_circle" if self.settings.grid.circular else "_rectangle"
         np.save(os.path.join(path, name + ".npy"), np.asarray(self.residuals))
 
@@ -509,7 +572,8 @@ class DGFEM:
             if s.problem.type == "Stokes":
                 f.write(f"### gamma={s.problem.velocity_penalty_parameter}\n")
             f.write("###\n")
-            f.write("### solver=multigrid\n\n")
+            method = "multigrid" if s.solver.method == "multigrid" else "direct"
+            f.write(f"### solver={method}\n\n")
             f.write("############################################\n\n")
 
     def _write_summary_results(self):

@@ -29,8 +29,10 @@ def from_dgtpu_arrays(levels, transfers, types, dims, device="cpu"):
         raise ValueError("need one transfer and one type between each pair of "
                          "levels, and one (Nj, Ni) per level")
     ops = [_stencil(lv, nj * ni, device) for lv, (nj, ni) in zip(levels, dims)]
-    out = [TransferOp(t["kind"], np.array(t["R"]), np.array(t["P"]), device=device)
-           for t in transfers]
+    # transfers[k] sits between levels k and k + 1: its tile grid is level k's
+    out = [TransferOp(t["kind"], np.array(t["R"]), np.array(t["P"]), device=device,
+                      Ni_t=ni, Nj_t=nj)
+           for t, (nj, ni) in zip(transfers, dims)]
     return ops, out
 
 

@@ -1,9 +1,11 @@
-"""Build, load and launch the CUDA kernels of ``csrc/soa_kernels.cu``: K1
+"""Build, load and launch the CUDA kernels of ``csrc/soa_kernels.cu`` (K1
 half-sweep, K3 small GEMM, K4 geometric transfer and K5 stencil apply of
-both cycles, K6, the Stokes pressure half-sweep, and K7, the streamed
-hybrids' cooperative multi-half-sweep.
+both SoA cycles, K6, the Stokes pressure half-sweep, and K7, the streamed
+hybrids' cooperative multi-half-sweep) and of ``csrc/rolled_kernels.cu``
+(R1 half-sweep, R2 stencil apply, R3 transfer and R4 dense apply of the
+rolled cycle).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (never at import: the CPU tests import
 every module), cached under ``build/dgtpu_torch/`` by the source's hash, and
 loaded with ``ctypes``.  Each launcher checks device, dtype, shape and
@@ -13,6 +15,7 @@ PyTorch's current stream and raises if the launch reports a CUDA error.
 
 import ctypes
 import functools
+from concurrent.futures import ThreadPoolExecutor
 import hashlib
 import os
 import shutil
@@ -22,11 +25,12 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "soa_kernels.cu")
+ROLLED_SOURCE = os.path.join(_PKG, "csrc", "rolled_kernels.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dgtpu_torch")
 # K7's grid-wide barrier (cooperative_groups::this_grid().sync()) needs no
 # -rdc=true: nvcc 12.9 builds it into this whole-program library and it
 # synchronises on the H100 (tests/test_torch_kernels.py).
-NVCC_FLAGS =["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -39,6 +43,12 @@ _SIGNATURES = {
     "soa_geo_transfer": [_P] * 4 + [_I] * 6 + [_P],
     "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
     "soa_dg_half_sweep": [_P] * 8 + [_I] * 7 + [_P],
+}
+_ROLLED_SIGNATURES = {
+    "rolled_half_sweep": [_P] * 6 + [_I] * 5 + [_P],
+    "rolled_stencil_apply": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
+    "rolled_transfer": [_P] * 4 + [_I] * 6 + [_P],
+    "rolled_dense_apply": [_P] * 3 + [_I, _P],
 }
 # K1/K5/K7 stage 5*B*TC floats of shared memory per CTA (TC = 32 cells), K6
 # (5*Bu + Np)*TC; the launches stay under the 48 KB a kernel gets without an
@@ -59,16 +69,17 @@ def _nvcc():
                        "machine with the CUDA toolkit")
 
 
-def build():
-    """Compile the kernel source unless it is built already; returns the
+def build(source=SOURCE):
+    """Compile one kernel source unless it is built already; returns the
     shared library's path."""
-    with open(SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libsoa_kernels_{digest}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(lib):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -77,17 +88,34 @@ def build():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def library():
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
+def build_all():
+    """Compile both sources, one nvcc each, started together."""
+    with ThreadPoolExecutor(2) as pool:
+        return list(pool.map(build, (SOURCE, ROLLED_SOURCE)))
+
+
+def _load(source, signatures, prefix):
+    lib = ctypes.CDLL(build(source))
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.soa_error_string.argtypes = [ctypes.c_int]
-    lib.soa_error_string.restype = ctypes.c_char_p
+    error_string = getattr(lib, f"{prefix}_error_string")
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded library of the SoA kernels (built on first call)."""
+    return _load(SOURCE, _SIGNATURES, "soa")
+
+
+@functools.lru_cache(maxsize=None)
+def rolled_library():
+    """The loaded library of the rolled kernels (built on first call)."""
+    return _load(ROLLED_SOURCE, _ROLLED_SIGNATURES, "rolled")
 
 
 def _check(*tensors, blocks=()):
@@ -98,12 +126,12 @@ def _check(*tensors, blocks=()):
     dev = every[0].device
     for t in every:
         if not t.is_cuda or t.device != dev:
-            raise ValueError("SoA kernels take CUDA tensors on one device")
+            raise ValueError("the kernels take CUDA tensors on one device")
         if not t.is_contiguous():
-            raise ValueError("SoA kernels take contiguous tensors")
+            raise ValueError("the kernels take contiguous tensors")
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(f"SoA kernels' vectors are float32, got {t.dtype}")
+            raise TypeError(f"the kernels' vectors are float32, got {t.dtype}")
     kinds = {t.dtype for t in blocks}
     if not kinds <= {torch.float32, torch.bfloat16} or len(kinds) > 1:
         raise TypeError(f"SoA kernels' blocks are float32 or bfloat16, got {kinds}")
@@ -111,11 +139,12 @@ def _check(*tensors, blocks=()):
 
 
 def _launch(name, *args):
-    lib = library()
+    prefix = name.split("_")[0]
+    lib = rolled_library() if prefix == "rolled" else library()
     code = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} "
-                           f"({lib.soa_error_string(code).decode()})")
+        message = getattr(lib, f"{prefix}_error_string")(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({message})")
 
 
 def _ptr(t):
@@ -264,4 +293,83 @@ def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
             blocks.stride(0), Dinv.stride(0), rhs.data_ptr(), _ptr(u), _ptr(base),
             out.data_ptr(), int(n_half), B, C, int(nh), int(periodic), int(bf16),
             int(ctas))
+    return out
+
+
+# R1..R3 stage at most 5 * B floats of shared memory per CTA
+_MAX_ROLLED_B = _SMEM_FLOATS // 5
+
+
+def _rolled_level(name, blocks, *vectors):
+    """(Nj, Ni, B) of a rolled level's blocks (Nj, Ni, 5, B, B), checked
+    against its (Nj, Ni, B) vectors."""
+    nj, ni, _, B, _ = blocks.shape
+    if blocks.shape != (nj, ni, 5, B, B) or any(v.shape != (nj, ni, B) for v in vectors):
+        raise ValueError(f"{name}: inconsistent rolled shapes")
+    if B > _MAX_ROLLED_B:
+        raise ValueError(f"{name}: B={B} exceeds the kernel's shared-memory "
+                         f"tile (B <= {_MAX_ROLLED_B})")
+    return nj, ni, B
+
+
+def rolled_half_sweep(blocks, Dinv, rhs, u, color, base=None):
+    """R1; see ``ops.vcycle.half_sweep``."""
+    _check(blocks, Dinv, rhs, u, *_opt(base))
+    nj, ni, B = _rolled_level("rolled_half_sweep", blocks, rhs, u, *_opt(base))
+    if Dinv.shape != (nj, ni, B, B):
+        raise ValueError("rolled_half_sweep: inconsistent rolled shapes")
+    out = torch.empty_like(u)
+    _launch("rolled_half_sweep", blocks.data_ptr(), Dinv.data_ptr(), rhs.data_ptr(),
+            u.data_ptr(), _ptr(base), out.data_ptr(), int(color), nj, ni, B,
+            int(base is not None))
+    return out
+
+
+def rolled_stencil_apply(blocks, x, base=None, sign=1.0):
+    """R2; see ``ops.vcycle.stencil_apply``."""
+    _check(blocks, x, *_opt(base))
+    nj, ni, B = _rolled_level("rolled_stencil_apply", blocks, x, *_opt(base))
+    out = torch.empty_like(x)
+    _launch("rolled_stencil_apply", blocks.data_ptr(), x.data_ptr(), _ptr(base),
+            out.data_ptr(), nj, ni, B, float(sign), int(base is not None))
+    return out
+
+
+def rolled_transfer(T, x, restrict=False, base=None):
+    """R3; see ``ops.vcycle.transfer``.  T (Bout, Bin) acts per cell; T
+    (4, Bout, Bin) is a 2x2 restriction when ``restrict``, else a 2x2
+    prolongation."""
+    _check(T, x, *_opt(base))
+    nj, ni, Bin = x.shape
+    Bout = T.shape[-2]
+    if T.shape[-1] != Bin or T.shape[:-2] not in ((), (4,)):
+        raise ValueError(f"rolled_transfer: T {tuple(T.shape)} vs x {tuple(x.shape)}")
+    if T.dim() == 2:
+        mode, njo, nio = 0, nj, ni
+    elif restrict:
+        if nj % 2 or ni % 2:
+            raise ValueError(f"rolled_transfer: a {nj}x{ni} grid has no 2x2 tiles")
+        mode, njo, nio = 1, nj // 2, ni // 2
+    else:
+        mode, njo, nio = 2, 2 * nj, 2 * ni
+    if base is not None and (mode == 1 or base.shape != (njo, nio, Bout)):
+        raise ValueError("rolled_transfer: base is the output-grid addend of a "
+                         "per-cell transfer or a prolongation")
+    if 4 * Bin > _SMEM_FLOATS:
+        raise ValueError(f"rolled_transfer: B_in={Bin} exceeds the kernel's "
+                         "shared-memory tile")
+    out = torch.empty((njo, nio, Bout), dtype=x.dtype, device=x.device)
+    _launch("rolled_transfer", T.data_ptr(), x.data_ptr(), _ptr(base), out.data_ptr(),
+            Bout, Bin, njo, nio, mode, int(base is not None))
+    return out
+
+
+def rolled_dense_apply(W, x):
+    """R4; see ``ops.vcycle.dense_apply``."""
+    _check(W, x)
+    M = x.numel()
+    if W.shape != (M, M):
+        raise ValueError(f"rolled_dense_apply: W {tuple(W.shape)} vs {M} unknowns")
+    out = torch.empty_like(x)
+    _launch("rolled_dense_apply", W.data_ptr(), x.data_ptr(), out.data_ptr(), M)
     return out

@@ -76,19 +76,65 @@ def geometric_restriction(p, cf=2):
     return geometric_prolongation(p, cf).T / (cf * cf)
 
 
+def _gather_tiles(vec, Nj_t, Ni_t, cf, B):
+    """(N_f*B,) m-ordered -> (N_tiles, cf^2*B) rows with (tile_j, tile_i) order
+    and (child_j, child_i, mode) columns — the V-cycle reshape (solver.py:152-168)."""
+    v = vec.reshape(Nj_t, cf, Ni_t, cf, B).permute(0, 2, 1, 3, 4)
+    return v.reshape(Nj_t * Ni_t, cf * cf * B)
+
+
+def _scatter_tiles(rows, Nj_t, Ni_t, cf, B):
+    return rows.reshape(Nj_t, Ni_t, cf, cf, B).permute(0, 2, 1, 3, 4).reshape(-1)
+
+
 class TransferOp:
     """One inter-level transfer: its kind, restriction ``R`` and prolongation
     ``P`` as float64 tensors.  Geometric ones act on 2x2 tiles of fine
-    cells: columns of R (rows of P) run (child_j, child_i, mode)."""
+    cells: columns of R (rows of P) run (child_j, child_i, mode), and
+    ``Ni_t`` x ``Nj_t`` is the coarse level's element grid (needed by
+    ``restrict``/``prolong`` on flat vectors only: the SoA and rolled cycles
+    carry their own dims).  All vectors are in element m-order
+    (m = j*Ni + i, j slow)."""
 
-    def __init__(self, kind, R, P, device="cpu"):
+    def __init__(self, kind, R, P, device="cpu", Ni_t=None, Nj_t=None):
         self.kind = kind
         self.R = torch.as_tensor(R, dtype=torch.float64, device=device)
         self.P = torch.as_tensor(P, dtype=torch.float64, device=device)
+        self.Ni_t, self.Nj_t = Ni_t, Nj_t
+
+    def _tiles(self):
+        if self.Ni_t is None or self.Nj_t is None:
+            raise ValueError("a geometric transfer needs the coarse grid's "
+                             "(Ni_t, Nj_t) to act on flat vectors")
+        return self.Nj_t, self.Ni_t, 2, self.R.shape[0]
+
+    def restrict(self, residual):
+        """Fine residual (N_f*B_f,) -> coarse right-hand side (N_c*B_c,)."""
+        if self.kind == "penalty":
+            return residual
+        R = self.R.to(residual.dtype)
+        if self.kind == "geometric":
+            rows = _gather_tiles(residual, *self._tiles())
+        else:
+            rows = residual.reshape(-1, R.shape[1])
+        return (rows @ R.T).reshape(-1)
+
+    def prolong(self, u_coarse):
+        """Coarse correction (N_c*B_c,) -> fine correction (N_f*B_f,)."""
+        if self.kind == "penalty":
+            return u_coarse
+        P = self.P.to(u_coarse.dtype)
+        v = u_coarse.reshape(-1, P.shape[1]) @ P.T
+        if self.kind == "geometric":
+            return _scatter_tiles(v, *self._tiles())
+        return v.reshape(-1)
 
 
-def make_transfer(kind, p_fine=None, p_coarse=None, cf=2, device="cpu"):
-    """Factory for the penalty / polynomial / geometric transfers."""
+def make_transfer(kind, p_fine=None, p_coarse=None, cf=2, device="cpu",
+                  Ni_c=None, Nj_c=None):
+    """Factory for the penalty / polynomial / geometric transfers.
+    ``Ni_c, Nj_c``: the coarse level's element counts (the tile grid of a
+    geometric transfer)."""
     if kind == "penalty":
         B = (p_fine + 1) ** 2
         return TransferOp("penalty", np.eye(B), np.eye(B), device=device)
@@ -97,7 +143,8 @@ def make_transfer(kind, p_fine=None, p_coarse=None, cf=2, device="cpu"):
         return TransferOp("polynomial", R, R.T, device=device)
     if kind == "geometric":
         return TransferOp("geometric", geometric_restriction(p_fine, cf),
-                          geometric_prolongation(p_fine, cf), device=device)
+                          geometric_prolongation(p_fine, cf), device=device,
+                          Ni_t=Ni_c, Nj_t=Nj_c)
     if kind in ("dg_to_fvm", "geometric_fvm"):
         raise NotImplementedError(
             f"the {kind} transfer (FVM coarse level) is not ported yet "

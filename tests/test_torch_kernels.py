@@ -1,6 +1,6 @@
 """The port's CUDA kernels (dgtpu_torch/csrc/soa_kernels.cu: K1, K3, K4,
-K5, K6 and K7) against their plain torch versions, and the port's import
-hygiene.
+K5, K6 and K7; dgtpu_torch/csrc/rolled_kernels.cu: R1-R4) against their
+plain torch versions, and the port's import hygiene.
 
 The kernels have no CPU mode: the tests marked ``cuda`` skip without a
 card and run on one with ``python -m pytest tests/test_torch_kernels.py``.
@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from dgtpu_torch.ops import _kernels, soa, stream
+from dgtpu_torch.ops import _kernels, soa, stream, vcycle
 from dgtpu_torch.ops import stokes_soa as ss
 from dgtpu_torch.ops import stokes_stream as sst
 
@@ -40,7 +40,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, dgtpu_torch, dgtpu_torch.api, dgtpu_torch.__main__, "
             "dgtpu_torch.convert, dgtpu_torch.ops.soa, dgtpu_torch.ops.stokes_soa, "
             "dgtpu_torch.ops.stream, dgtpu_torch.ops.stokes_stream, "
-            "dgtpu_torch.models.stokes; "
+            "dgtpu_torch.ops.vcycle, dgtpu_torch.ops.smoothers, "
+            "dgtpu_torch.solvers.multigrid, dgtpu_torch.solvers.direct, "
+            "dgtpu_torch.solvers.relaxation_driver, dgtpu_torch.models.stokes; "
             "assert 'jax' not in sys.modules and 'dgtpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    env={**os.environ, "PYTHONPATH": REPO}, timeout=120)
@@ -64,16 +66,19 @@ def test_sources_import_no_jax():
 
 
 def test_entry_points_match_bindings():
-    """Every ctypes signature names an extern "C" function of the kernel
-    source with the same number of arguments, and the source exports no
+    """Every ctypes signature names an extern "C" function of its kernel
+    source with the same number of arguments, and the sources export no
     other entry point."""
-    src = open(_kernels.SOURCE).read()
-    assert set(re.findall(r"^int (soa_\w+)\(", src, re.M)) == set(_kernels._SIGNATURES)
-    for name, argtypes in _kernels._SIGNATURES.items():
-        m = re.search(rf"\bint {name}\(([^)]*)\)", src)
-        assert m, name
-        assert len(m.group(1).split(",")) == len(argtypes), name
-    assert "soa_error_string(int code)" in src
+    for path, prefix, signatures in (
+            (_kernels.SOURCE, "soa", _kernels._SIGNATURES),
+            (_kernels.ROLLED_SOURCE, "rolled", _kernels._ROLLED_SIGNATURES)):
+        src = open(path).read()
+        assert set(re.findall(rf"^int ({prefix}_\w+)\(", src, re.M)) == set(signatures)
+        for name, argtypes in signatures.items():
+            m = re.search(rf"\bint {name}\(([^)]*)\)", src)
+            assert m, name
+            assert len(m.group(1).split(",")) == len(argtypes), name
+        assert f"{prefix}_error_string(int code)" in src
 
 
 def test_launchers_refuse_cpu_tensors():
@@ -88,6 +93,15 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.multi_half_sweep(torch.zeros(2, 5, 4, 4, 8), torch.zeros(2, 4, 4, 8),
                                   x, x, 4, 2, False)
+    blocks, Dinv, v = torch.zeros(2, 3, 5, 4, 4), torch.zeros(2, 3, 4, 4), torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.rolled_half_sweep(blocks, Dinv, v, v, 0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.rolled_stencil_apply(blocks, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.rolled_transfer(torch.zeros(2, 4), v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.rolled_dense_apply(torch.zeros(24, 24), v)
 
 
 def _rand(rng, *shape, device="cpu"):
@@ -370,3 +384,122 @@ def test_streamed_hybrid_route_on_the_card(cuda, tmp_path, monkeypatch, storage)
     dg.solve()
     assert dg.cycle_kind == "streamed hybrid" and dg.cut == len(dg.levels) - 1
     assert dg.solve_residual < 1e-10 and stream.multi_half_sweep.launches > 0
+
+
+def _rolled_close(kern, *args, **kw):
+    got = kern(*args, **kw)
+    ref = vcycle.PLAIN[kern](*args, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _rolled_level(rng, B, nj, ni, device):
+    return vcycle.RolledLevel(_rand(rng, nj, ni, 5, B, B, device=device),
+                              _rand(rng, nj, ni, B, B, device=device),
+                              torch.as_tensor(np.stack([(np.add.outer(
+                                  np.arange(nj), np.arange(ni)) % 2 == c) for c in (0, 1)]
+                              )[..., None], dtype=torch.float32, device=device))
+
+
+# (B, Nj, Ni): the flagship's p5 / p3 / p1 levels at 8x8, its 1x1 and 2x2
+# coarse levels, odd and one-wide grids, a single row, and 64x64 p5
+ROLLED_SHAPES = [(36, 8, 8), (16, 8, 8), (4, 8, 8), (4, 1, 1), (4, 2, 2), (9, 2, 3),
+                 (9, 3, 1), (9, 1, 4), (5, 5, 7), (36, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, nj, ni", ROLLED_SHAPES)
+def test_rolled_half_sweep_and_stencil_kernels(cuda, B, nj, ni):
+    """R1 (both colors, with and without a base) and R2 (matvec and
+    residual).  Random blocks in every slot, so the wrapped i-neighbors
+    count as on an O-grid; with an odd Ni the seam joins two cells of one
+    color, which R1 updates from pre-update values."""
+    rng = np.random.default_rng(0)
+    lv = _rolled_level(rng, B, nj, ni, cuda)
+    rhs, u, base = (_rand(rng, nj, ni, B, device=cuda) for _ in range(3))
+    for color in (0, 1):
+        assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color) < REL_TOL
+        assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color, base) < REL_TOL
+    assert _rolled_close(vcycle.stencil_apply, lv, u) < REL_TOL
+    assert _rolled_close(vcycle.stencil_apply, lv, u, rhs, -1.0) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bf, Bc, nj_c, ni_c", [(36, 16, 8, 8), (16, 4, 8, 8), (4, 4, 4, 4),
+                                                (4, 4, 1, 1), (9, 9, 1, 3), (36, 36, 32, 32)])
+def test_rolled_transfer_kernel(cuda, Bf, Bc, nj_c, ni_c):
+    """R3 per cell (polynomial R, and P onto a base) and as the 2x2
+    restriction and prolongation (with and without a base)."""
+    rng = np.random.default_rng(0)
+    R, P = _rand(rng, Bc, Bf, device=cuda), _rand(rng, Bf, Bc, device=cuda)
+    fine = _rand(rng, nj_c, ni_c, Bf, device=cuda)
+    coarse = _rand(rng, nj_c, ni_c, Bc, device=cuda)
+    assert _rolled_close(vcycle.transfer, R, fine, restrict=True) < REL_TOL
+    assert _rolled_close(vcycle.transfer, P, coarse, base=fine) < REL_TOL
+    R4, P4 = _rand(rng, 4, Bc, Bf, device=cuda), _rand(rng, 4, Bf, Bc, device=cuda)
+    fine = _rand(rng, 2 * nj_c, 2 * ni_c, Bf, device=cuda)
+    assert _rolled_close(vcycle.transfer, R4, fine, restrict=True) < REL_TOL
+    assert _rolled_close(vcycle.transfer, P4, coarse) < REL_TOL
+    assert _rolled_close(vcycle.transfer, P4, coarse, base=fine) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, nj, ni", [(4, 1, 1), (4, 2, 2), (9, 1, 3), (16, 4, 4)])
+def test_rolled_dense_apply_kernel(cuda, B, nj, ni):
+    rng = np.random.default_rng(0)
+    M = nj * ni * B
+    assert _rolled_close(vcycle.dense_apply, _rand(rng, M, M, device=cuda),
+                         _rand(rng, nj, ni, B, device=cuda)) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_rolled_launchers_refuse_wrong_shapes(cuda):
+    rng = np.random.default_rng(0)
+    lv = _rolled_level(rng, 4, 2, 3, cuda)
+    v = _rand(rng, 2, 3, 4, device=cuda)
+    with pytest.raises(ValueError, match="inconsistent rolled shapes"):
+        _kernels.rolled_half_sweep(lv.blocks, lv.Dinv, v, v[:, :2].contiguous(), 0)
+    with pytest.raises(ValueError, match="no 2x2 tiles"):
+        _kernels.rolled_transfer(_rand(rng, 4, 4, 4, device=cuda), v, restrict=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.rolled_stencil_apply(lv.blocks, v.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(TypeError, match="float32"):
+        _kernels.rolled_dense_apply(torch.zeros(24, 24, device=cuda), v.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cycle, coarse", [("V", "smoother"), ("W", "direct"),
+                                           ("F", "smoother")])
+def test_rolled_cycle_and_solve_on_the_card(cuda, tmp_path, monkeypatch, cycle, coarse):
+    """The 8x8 p=5 hierarchy with factors 8,4,2 (six levels down to 1x1): one
+    kernel cycle vs the plain cycle on the card, then the mixed route
+    through the rolled kernels to 1e-10."""
+    import dgtpu_torch.api as tapi
+    from dgtpu_torch.settings import Settings, load_params
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    params = load_params()
+    mg = params["solver"]["multigrid"]
+    mg["geometric coarsening"]["coarsening factors"] = "8,4,2"
+    mg["cycle type"], mg["coarse grid solver"] = cycle, coarse
+    params["performance"]["precision"] = "mixed"
+    params["visualization"]["export"] = False
+    params["logging"]["loglevel"] = "ERROR"
+    dg = tapi.DGFEM(device="cuda", settings=Settings(params), solve_multigrid=True)
+    dims = [(l.Nj, l.Ni) for l in dg.levels]
+
+    def make(**kw):
+        return vcycle.RolledVCycle([l.op for l in dg.levels], dg.transfers,
+                                   dg.transfer_types, dg.settings, dims, **kw)
+
+    rhs = dg.levels[-1].rhs
+    u_k = make()(rhs, torch.zeros_like(rhs))
+    u_p = make(reference=True)(rhs, torch.zeros_like(rhs))
+    assert float((u_k - u_p).abs().max() / u_p.abs().max()) < REL_TOL
+    vcycle.reset_launch_counts()
+    soa.reset_launch_counts()
+    dg.solve()
+    assert dg.cycle_kind == "rolled" and dg.solve_residual < 1e-10
+    used = vcycle.KERNELS if coarse == "direct" else vcycle.KERNELS[:3]
+    assert all(k.launches > 0 for k in used)
+    assert not any(k.launches for k in soa.KERNELS)

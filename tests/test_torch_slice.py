@@ -120,7 +120,9 @@ def test_residual_history_leaves_dgtpus_directory(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"performance.precision": "full"}, "item 8"),
+    # full-precision Stokes: the generic multigrid's Stokes smoothers
+    ({"performance.precision": "full", "problem.type": "Stokes",
+      "solution.ordering": "global"}, "item 9"),
     ({"performance.n_shards": 2}, "item 12"),
     ({"problem.type": "Stokes", "solution.ordering": "local"}, "item 9"),
     ({"solver.multigrid.geometric coarsening.use FVM": True}, "item 11"),
@@ -140,9 +142,9 @@ def test_unported_branches_raise(tmp_path, monkeypatch, override, item):
 def test_other_solver_routes_raise(tmp_path, monkeypatch):
     monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path), solve_direct=True)
+        tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path), solve_krylov=True)
     with pytest.raises(SystemExit) as exc:
-        main(["-d", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
+        main(["-k", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
     assert exc.value.code == 1
 
 
