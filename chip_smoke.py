@@ -13,27 +13,35 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      K3 small GEMM, K4 geometric transfer) against its plain torch version
      on the same inputs, at the 8x8 p=5 hierarchy's shapes and on the 4x4
      O-grid;
-  4. one whole cycle on the 8x8 p=5 hierarchy, kernel path against plain path;
+  4. one whole cycle on the 8x8 p=5 hierarchy, kernel path against plain path,
+     and the cycle captured as a CUDA graph (``ops/graphs.py``) against the
+     eager cycle, bit for bit, with the launch counters after 3 replays
+     held to 3 x the eager cycle's (again with the dense coarse inverse);
   5. the CLI route ``python -m dgtpu_torch -m --precision mixed`` on the
-     default paramfile, with the launch count of every kernel;
+     default paramfile, with the launch count of every kernel (every route
+     solve replays its captured cycle: solve and capture seconds apart);
   6. the same route on Rectangle_64X64_nPoly5 (factors 16,8,4,2, FMG seed):
      the hierarchy outgrows the card's L2 (the budget read from the card),
      so it runs the streamed hybrid (K7 on the finest level), held to a
      solve of the same hierarchy through the SoA cycle;
   7. marginal cycle times of the SoA cycle (CUDA events, slope between k
-     and 8k cycles), 8x8 and 64x64;
+     and 8k cycles), 8x8 and 64x64, eager and graphed in turns; K3 at every
+     shape of the 8x8 p=5 cycle timed four ways (eager, 200 launches in one
+     graph, and its library call, torch.baddbmm or torch.matmul, both ways);
   8. each kernel of the Stokes cycle (K1, K3, K4, K5 and K6 pressure DG
      half-sweep) against its plain version at every shape of the 8x8
      p_u=2/p_p=1 Stokes hierarchy, and K1/K5/K6 on a synthetic O-grid;
-  9. one whole 8x8 Stokes W-cycle, kernel path against plain path;
+  9. one whole 8x8 Stokes W-cycle, kernel path against plain path; the
+     W-cycle and the matvec graphed against eager, bit for bit;
  10. the Stokes CLI route at 8x8 through a temporary paramfile, with the
      launch count of every kernel;
  11. the Stokes route on Rectangle_32X32_nPoly2 (6 levels; GMRES-wrapped
      refinement when the plain one stalls), with the launch count of every
      kernel, then each kernel against its plain version at every shape of
      the 32x32 hierarchy;
- 12. marginal Stokes W-cycle times and launches per cycle, and per-call
-     times of K5 and K6 beside their plain versions;
+ 12. marginal Stokes W-cycle times (eager and graphed in turns) and
+     launches per cycle, per-call times of K5 and K6 beside their plain
+     versions, and K3 at the 8x8 Stokes shapes four ways;
  13. the streamed kernels against their plain versions: K7 (float32 and
      bfloat16 blocks) and K5 with bfloat16 blocks at the 64x64 p=5 finest
      shapes, K6 (the streamed DG pass) and K5 at the 32x32 Stokes finest
@@ -42,17 +50,18 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
  15. the 32x32 Stokes route through the streamed Stokes hybrid (budget: the
      SoA bytes of all levels but the two finest), FMG seed, plain and
      GMRES(16) refinement;
- 16. marginal cycle times and launches per cycle, SoA cycle against the
-     hybrids (64x64 Poisson float32 and bfloat16 storage, 32x32 Stokes),
-     and per-call times of K7 and K5 with bfloat16 blocks beside their
-     plain versions;
+ 16. the hybrids graphed against eager, bit for bit (64x64 Poisson float32
+     and bfloat16 storage, the 32x32 Stokes W-cycle and matvec); marginal
+     cycle times and launches per cycle, SoA cycle against the hybrids,
+     eager and graphed in turns, and per-call times of K7 and K5 with
+     bfloat16 blocks beside their plain versions;
  17. the rolled cycle's kernels (R1 half-sweep, R2 stencil apply, R3
      transfer, R4 dense apply) against their plain versions at every shape
      of the 8x8 p=5 hierarchy with geometric factors 8,4,2 (B 36, 16, 4;
      8x8 down to 1x1), of the 4x4 O-grid hierarchy and on a synthetic
      3-wide level;
  18. one whole rolled cycle on that 8x8 p=5 hierarchy, kernel path against
-     plain path;
+     plain path, and graphed against eager, bit for bit;
  19. the mixed route through the rolled cycle: the CLI at 8x8 p=5 with
      factors 8,4,2 (a 1x1 coarsest level, so no SoA cycle), held to dgtpu's
      L2(u); the same with an F-cycle and the dense coarse inverse; and at
@@ -61,19 +70,21 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
  20. the full-precision routes on the card at 8x8 p=5: ``-m`` with
      sequential and red-black smoothing and ``-d``, held to the mixed
      route's L2(u); ``-s`` at 8x8 p=2;
- 21. marginal rolled cycle times and launches per cycle at 8x8 and 64x64
-     beside the SoA cycle's, and per-call times of R1-R4 beside their plain
-     versions and bounds.
+ 21. marginal rolled cycle times (eager and graphed in turns) and launches
+     per cycle at 8x8 and 64x64 beside the SoA cycle's, per-call times of
+     R1-R4 beside their plain versions and bounds, and R4 four ways beside
+     torch.mv.
 The last lines are the kernels' JSON record (per kernel: launches on the
-main paths, worst error against the plain version, its time, the plain
-version's, the bound from bytes and operations, and a PyTorch call's time
-where one computes the same function), the nvidia-smi line and
+main paths, worst error against the plain version, its time eagerly and
+in a graph of 200 launches, the plain version's, the bound from bytes and
+operations, and a PyTorch call's time both ways where one computes the
+same function), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA or without
 the rest of the repository.
 
 ``--profile`` runs ``torch.profiler`` over the cycles of the four
 configurations, of the 64x64 streamed hybrids and of the rolled cycle at
-8x8 and 64x64 (kernel and plain paths:
+8x8 and 64x64 (kernel, plain and graphed paths:
 device-busy time, device ops per cycle, the top device ops) and over single
 calls of the SoA cycles' kernels at the finest levels' shapes (device us
 per call, bytes moved, GB/s).
@@ -224,6 +235,114 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n=200):
+    """Mean milliseconds per call of ``fn`` with ``n`` calls captured in one
+    CUDA graph and replayed (CUDA events over the replays)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 5) / n
+
+
+def small_gemm_library(W, x, base=None):
+    """One PyTorch call computing K3's function: (base +) W x per batch
+    entry."""
+    import torch
+    if base is None:
+        return lambda: torch.matmul(W, x)
+    return lambda: torch.baddbmm(base, W.expand(x.shape[0], *W.shape), x)
+
+
+def four_ways(label, kern, args, library, card):
+    """A kernel and its library call, each timed eagerly back to back and as
+    200 launches captured in one CUDA graph; prints and returns (ms,
+    graph ms, library ms, library graph ms)."""
+    times = (cuda_ms(lambda: kern(*args), 200), graph_ms(lambda: kern(*args)),
+             cuda_ms(library, 200), graph_ms(library))
+    print(f"{label}: kernel {times[0]:.4f} ms eager, {times[1]:.4f} ms in a graph; "
+          f"library {times[2]:.4f} ms eager, {times[3]:.4f} ms in a graph ({card})",
+          flush=True)
+    return times
+
+
+# host operations of one graphed call: the replay, the two input copies and
+# the clone of the output
+GRAPH_HOST_OPS = 4
+
+
+def in_turns(cyc, rhs, k):
+    """Marginal ms of ``cyc`` eager and replayed as a CUDA graph, in turns
+    (eager, graph, graph, eager); with the capture's ms and the kernel
+    launches per cycle."""
+    import torch
+    from dgtpu_torch.ops.graphs import CycleGraph
+    graph = CycleGraph(cyc)
+    zero = torch.zeros_like(rhs)
+    graph(rhs, zero)
+    reset_counts()
+    graph(rhs, zero)
+    torch.cuda.synchronize()
+    launches = sum(counts().values())
+    e1, g1, g2, e2 = (marginal_ms(f, rhs, k) for f in (cyc, graph, graph, cyc))
+    return {"eager": (e1, e2), "graph": (g1, g2),
+            "capture_ms": graph.capture_seconds * 1e3, "launches": launches}
+
+
+def turns_text(t):
+    return (f"eager {t['eager'][0]:.4f}, {t['eager'][1]:.4f} ms, graphed "
+            f"{t['graph'][0]:.4f}, {t['graph'][1]:.4f} ms (capture "
+            f"{t['capture_ms']:.1f} ms); {t['launches']} kernel launches per cycle, "
+            f"{GRAPH_HOST_OPS} host operations per graphed cycle")
+
+
+def check_graph(label, fn, n, n_in, rng):
+    """``fn`` captured as a CUDA graph against the same eager call on two
+    random input sets, bit for bit; then every launch counter after 3
+    replays against 3 x the eager call's.  Raises on any difference."""
+    import torch
+    from dgtpu_torch.ops.graphs import CycleGraph
+    rand = _rand(rng)
+    inputs = [tuple(rand(n) for _ in range(n_in)) for _ in range(2)]
+    graph = CycleGraph(fn)
+    for x in inputs:
+        got, ref = graph(*x), fn(*x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: graph differs from eager by "
+                                 f"{float((got - ref).abs().max()):.3e}")
+    reset_counts()
+    fn(*inputs[0])
+    per_call = counts()
+    reset_counts()
+    for _ in range(3):
+        graph(*inputs[1])
+    torch.cuda.synchronize()
+    if counts() != {k: 3 * v for k, v in per_call.items()} or CycleGraph.replays != 3:
+        raise AssertionError(f"{label}: launch counters after 3 replays {counts()} "
+                             f"vs 3 x {per_call}")
+    print(f"{label}: graph equals eager bit for bit on 2 inputs; 3 replays counted "
+          f"3 x {sum(per_call.values())} kernel launches "
+          f"{ {k: v for k, v in per_call.items() if v} }; capture "
+          f"{graph.capture_seconds * 1e3:.1f} ms", flush=True)
+
+
+def solve_text(dg):
+    """The solve's seconds and its graph captures', after checking that the
+    route replayed a captured cycle."""
+    if not dg.graphed:
+        raise AssertionError(f"the {dg.cycle_kind} route ran its cycle eagerly")
+    return f"solve {dg.solve_seconds:.3f} s + capture {dg.graph_seconds:.3f} s"
 
 
 def stokes_cycle_of(dg, **kw):
@@ -405,6 +524,7 @@ def stokes_phases(card, rng, worst):
     """Phases 8-12: the Stokes route.  Returns the launch counts of the 8x8
     CLI route and of the 32x32 route, {kernel: (args, ms, plain ms)} of K5
     and K6 at the 8x8 finest shapes, and the 32x32 DGFEM."""
+    import numpy as np
     import torch
     import yaml
     from dgtpu_torch.__main__ import main as cli
@@ -431,6 +551,8 @@ def stokes_phases(card, rng, worst):
     if not rel < STOKES_CYCLE_REL_TOL:
         raise AssertionError(f"the kernel Stokes cycle disagrees with the plain "
                              f"one: {rel:.3e}")
+    check_graph("[9] 8x8 Stokes W-cycle", cyc8, rhs.numel(), 2, rng)
+    check_graph("[9] 8x8 Stokes matvec", cyc8.build_matvec(), rhs.numel(), 1, rng)
 
     # -- 10: the Stokes CLI route at 8x8 -------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -445,8 +567,8 @@ def stokes_phases(card, rng, worst):
     print(f"[10] 8x8 Stokes CLI route: residual {dg8.solve_residual:.3e} "
           f"(normalized), {dg8.residual:.3e} (L2), inner {dg8.inner}, outer rounds "
           f"{dg8.rounds}, L2(u) {dg8.L2_error_u:.9e}, L2(v) {dg8.L2_error_v:.9e}, "
-          f"L2(p) {dg8.L2_error_p:.9e} (rel to dgtpu {rel_l2}), solve "
-          f"{dg8.solve_seconds:.3f} s; launches {launches}", flush=True)
+          f"L2(p) {dg8.L2_error_p:.9e} (rel to dgtpu {rel_l2}), "
+          f"{solve_text(dg8)}; launches {launches}", flush=True)
     if not dg8.solve_residual < RES_TOL:
         raise AssertionError("the 8x8 Stokes solve did not reach 1e-10")
     not_launched(launches, list(launches), "the 8x8 Stokes route")
@@ -468,7 +590,7 @@ def stokes_phases(card, rng, worst):
           f"{dg32.rounds}, L2(u) {dg32.L2_error_u:.9e}, L2(v) {dg32.L2_error_v:.9e}, "
           f"L2(p) {dg32.L2_error_p:.9e} (rel to dgtpu {rel_l2}; below 8x8 by "
           f"{ {v: round(r, 2) for v, r in ratios.items()} }), setup {setup_s:.2f} s, "
-          f"solve {dg32.solve_seconds:.3f} s; launches {launches32}", flush=True)
+          f"{solve_text(dg32)}; launches {launches32}", flush=True)
     if not dg32.solve_residual < RES_TOL:
         raise AssertionError("the 32x32 Stokes solve did not reach 1e-10")
     if not (ratios["u"] >= 8 and ratios["v"] >= 8 and ratios["p"] >= 4):
@@ -486,13 +608,19 @@ def stokes_phases(card, rng, worst):
         cyc(rhs, torch.zeros_like(rhs))
         torch.cuda.synchronize()
         per_cycle = {kk.__name__: kk.launches for kk in ss.CYCLE_KERNELS}
-        kern_ms = marginal_ms(cyc, rhs, k)
+        t = in_turns(cyc, rhs, k)
         plain_ms = marginal_ms(stokes_cycle_of(dg, reference=True), rhs, k)
         size, b_ms = cycle_bound(dg)
-        print(f"[12] {name} Stokes marginal W-cycle time: kernels {kern_ms:.4f} ms, "
+        print(f"[12] {name} Stokes marginal W-cycle time: kernels {turns_text(t)}; "
               f"plain torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({size / 1e6:.3f} MB "
-              f"of operands); kernel launches per cycle {sum(per_cycle.values())} "
-              f"{per_cycle} ({card})", flush=True)
+              f"of operands); kernel launches per cycle {per_cycle} ({card})",
+              flush=True)
+    for kern, args in stokes_kernel_cases(cyc8, np.random.default_rng(0)):
+        if kern is soa.small_gemm:
+            W, x = args[:2]
+            four_ways(f"[12] small_gemm W {tuple(W.shape)} x {tuple(x.shape)}"
+                      f"{' + base' if len(args) > 2 else ''} (8x8 Stokes)", kern, args,
+                      small_gemm_library(*args), card)
     stokes_ms = {}
     for name, dg in (("8x8", flagship), ("32x32", dg32)):
         lv = stokes_cycle_of(dg).levels[-1]
@@ -516,13 +644,16 @@ def all_kernels():
 
 
 def reset_counts():
-    """Set the launch count of every kernel to 0."""
+    """Set the launch count of every kernel, and the CUDA graphs' counts of
+    captures and replays, to 0."""
     from dgtpu_torch.ops import soa, stream, vcycle
     from dgtpu_torch.ops import stokes_soa as ss
+    from dgtpu_torch.ops.graphs import CycleGraph
     soa.reset_launch_counts()
     ss.reset_launch_counts()
     stream.reset_launch_counts()
     vcycle.reset_launch_counts()
+    CycleGraph.reset_counts()
 
 
 def counts():
@@ -640,6 +771,7 @@ def profile(card):
     from dgtpu_torch.api import DGFEM
     from dgtpu_torch.ops import soa
     from dgtpu_torch.ops import stokes_soa as ss
+    from dgtpu_torch.ops.graphs import CycleGraph
     from dgtpu_torch.settings import Settings
 
     def device_ops(fn, n):
@@ -688,14 +820,17 @@ def profile(card):
     for name, make, cycle, n in configs:
         dg = make()
         rhs = dg.levels[-1].rhs.to(torch.float32)
-        for ref in (False, True):
-            cyc = cycle(dg, reference=ref)
+        for mode in ("kernels", "plain", "graphed"):
+            cyc = cycle(dg, reference=mode == "plain")
             u0 = torch.zeros_like(rhs)
-            calls = n if not ref else max(1, n // 5)
+            if mode == "graphed":
+                cyc = CycleGraph(cyc)
+                cyc(rhs, u0)
+            calls = max(1, n // 5) if mode == "plain" else n
             wall, ops = device_ops(lambda: cyc(rhs, u0), calls)
             busy = sum(v[1] for v in ops.values()) / calls
             top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:5]
-            print(f"[prof] {name} {'plain' if ref else 'kernels'}: host "
+            print(f"[prof] {name} {mode}: host "
                   f"{wall:.1f} us/cycle (profiled), device busy {busy:.1f} us/cycle, "
                   f"share {busy / wall:.4f}, device ops/cycle "
                   f"{sum(v[0] for v in ops.values()) / calls:.1f}; top (op, "
@@ -774,22 +909,31 @@ def cycle_bound(dg):
 
 
 def cycles_in_turns(cycles, rhs, k, label, card):
-    """Print each cycle's kernel launches per cycle and its marginal ms,
-    measured twice in turns (a, b, c, c, b, a): the host's noise drifts
-    within a run."""
+    """Print each cycle's kernel launches per cycle and its marginal ms, eager
+    and replayed as a CUDA graph, measured twice in turns (a, b, a graphed,
+    b graphed, b graphed, a graphed, b, a): the host's noise drifts within a
+    run."""
     import torch
+    from dgtpu_torch.ops.graphs import CycleGraph
+    zero = torch.zeros_like(rhs)
+    graphs = {f"{name} graphed": CycleGraph(cyc) for name, cyc in cycles.items()}
+    for g in graphs.values():
+        g(rhs, zero)                                  # captured before timing
+    cycles = {**cycles, **graphs}
     times = {name: [] for name in cycles}
     launches = {}
     for name in list(cycles) + list(cycles)[::-1]:
         reset_counts()
-        cycles[name](rhs, torch.zeros_like(rhs))
+        cycles[name](rhs, zero)
         torch.cuda.synchronize()
         launches[name] = {n: c for n, c in counts().items() if c}
         times[name].append(marginal_ms(cycles[name], rhs, k))
     for name, ms in times.items():
+        extra = (f", capture {graphs[name].capture_seconds * 1e3:.1f} ms, "
+                 f"{GRAPH_HOST_OPS} host operations per cycle" if name in graphs else "")
         print(f"[16] {label} {name}: {ms[0]:.4f}, {ms[1]:.4f} ms marginal, kernel "
-              f"launches per cycle {sum(launches[name].values())} {launches[name]} "
-              f"({card})", flush=True)
+              f"launches per cycle {sum(launches[name].values())} {launches[name]}"
+              f"{extra} ({card})", flush=True)
 
 
 def sweep_cases(lv, blocks, Dinv, rand):
@@ -961,6 +1105,8 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
         if not rel < KERNEL_REL_TOL:
             raise AssertionError(f"the rolled kernel cycle disagrees with the plain "
                                  f"one: {rel:.3e}")
+        check_graph(f"[18] 8x8 p5 rolled cycle ({name})", rolled_cycle_of(flagship, st),
+                    rhs.numel(), 2, rng)
 
     # -- 19: the mixed route through the rolled cycle ------------------------
     paths = {}
@@ -980,7 +1126,7 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
             print(f"[19] {name} CLI route ({len(dg.levels)} levels): {dg.cycle_kind}, "
                   f"residual {dg.solve_residual:.3e} (normalized), {dg.outer_rounds} outer "
                   f"rounds, L2(u) {dg.L2_error_u:.14e} (dgtpu {DGTPU_L2_8X8_P5_ROLLED:.14e}, "
-                  f"rel {l2_rel:.2e}), solve {dg.solve_seconds:.3f} s; launches "
+                  f"rel {l2_rel:.2e}), {solve_text(dg)}; launches "
                   f"{ {k: v for k, v in paths[name].items() if v} }", flush=True)
             if dg.cycle_kind != "rolled":
                 raise AssertionError(f"{name} ran the {dg.cycle_kind} cycle")
@@ -1005,7 +1151,7 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
           f"down to 1x1): {dg64.cycle_kind}, residual {dg64.solve_residual:.3e} "
           f"(normalized), {dg64.outer_rounds} outer rounds, L2(u) {dg64.L2_error_u:.9e}, "
           f"nodal u against phase 6's SoA route {sol:.2e} relative, setup {setup_s:.2f} s, "
-          f"solve {dg64.solve_seconds:.3f} s; launches "
+          f"{solve_text(dg64)}; launches "
           f"{ {k: v for k, v in paths['rolled_64x64'].items() if v} }", flush=True)
     if dg64.cycle_kind != "rolled" or not dg64.solve_residual < RES_TOL:
         raise AssertionError("the 64x64 rolled route missed its bars")
@@ -1067,16 +1213,16 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
         cyc(rhs, torch.zeros_like(rhs))
         torch.cuda.synchronize()
         per_cycle = {n: c for n, c in counts().items() if c}
-        kern_ms = [marginal_ms(cyc, rhs, k)]
+        t = in_turns(cyc, rhs, k)
         plain_ms = marginal_ms(rolled_cycle_of(dg, reference=True), rhs, k)
-        kern_ms.append(marginal_ms(cyc, rhs, k))
         size = cyc.device_bytes()
         print(f"[21] {name} marginal rolled cycle time ({len(dg.levels)} levels): kernels "
-              f"{kern_ms[0]:.4f}, {kern_ms[1]:.4f} ms, plain torch {plain_ms:.4f} ms, bound "
+              f"{turns_text(t)}; plain torch {plain_ms:.4f} ms, bound "
               f"{size / HBM_BYTES_PER_S * 1e3:.4f} ms ({size / 1e6:.3f} MB of operands, "
               f"device_bytes); the SoA cycle of phase 7 ({name}, its own hierarchy) "
-              f"{soa_ms[name]:.4f} ms; kernel launches per cycle "
-              f"{sum(per_cycle.values())} {per_cycle} ({card})", flush=True)
+              f"eager {soa_ms[name]['eager'][0]:.4f}, graphed "
+              f"{soa_ms[name]['graph'][0]:.4f} ms; kernel launches per cycle "
+              f"{per_cycle} ({card})", flush=True)
         lv = cyc.levels[-1]
         rand = _rand(rng)
         shape = lv.Dinv.shape[:3]
@@ -1103,6 +1249,10 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
                   f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
             if name == "64x64 p5":
                 timed.setdefault(kern, (args, ms, p_ms))
+            if kern is vcycle.dense_apply:
+                W, x = args
+                four_ways(f"[21] R4 dense apply W {tuple(W.shape)} ({name})", kern, args,
+                          lambda: torch.mv(W, x.reshape(-1)), card)
     return paths, timed
 
 
@@ -1173,6 +1323,9 @@ def main():
           flush=True)
     if not rel < KERNEL_REL_TOL:
         raise AssertionError(f"kernel cycle disagrees with the plain cycle: {rel:.3e}")
+    check_graph("[4] 8x8 p5 SoA cycle", cyc8, rhs.numel(), 2, rng)
+    check_graph("[4] 8x8 p5 SoA cycle, dense coarse inverse", cyc_direct, rhs.numel(), 2,
+                rng)
 
     # -- 5: the CLI route on the default paramfile ---------------------------
     reset_counts()
@@ -1184,7 +1337,7 @@ def main():
           f"{dg8.residual:.3e} (L2), {dg8.outer_rounds} outer rounds, "
           f"L1(u) {dg8.L1_error_u:.6e}, L2(u) {dg8.L2_error_u:.9e} "
           f"(dgtpu {DGTPU_L2_8X8_P5:.9e}, rel {l2_rel:.2e}), "
-          f"solve {dg8.solve_seconds:.3f} s; launches {launches}", flush=True)
+          f"{solve_text(dg8)}; launches {launches}", flush=True)
     if not dg8.solve_residual < RES_TOL:
         raise AssertionError("the 8x8 solve did not reach 1e-10")
     if not l2_rel < L2_REL_TOL:
@@ -1205,6 +1358,7 @@ def main():
     hyb = {k: getattr(dg64, k) for k in ("cycle_kind", "cut", "solve_residual",
                                          "residual", "outer_rounds", "L1_error_u",
                                          "L2_error_u", "solve_seconds", "u_nodal")}
+    hyb["solve"] = solve_text(dg64)
     with stream_budget(None):
         dg64.solve()
     torch.cuda.synchronize()
@@ -1220,8 +1374,8 @@ def main():
           f"L2(u) {hyb['L2_error_u']:.9e} ({dg8.L2_error_u / hyb['L2_error_u']:.3g}x "
           f"below 8x8; SoA cycle's {l2_soa:.9e}, rel {rel_soa:.2e}; nodal u against "
           f"the SoA route's {sol_soa:.2e} relative), setup "
-          f"{setup_s:.2f} s, solve {hyb['solve_seconds']:.3f} s (SoA "
-          f"{dg64.solve_seconds:.3f} s); launches {launches64}", flush=True)
+          f"{setup_s:.2f} s, {hyb['solve']} (SoA {solve_text(dg64)}); launches "
+          f"{launches64}", flush=True)
     if hyb["cycle_kind"] != "streamed hybrid":
         raise AssertionError("the 64x64 route did not run the streamed hybrid")
     not_launched(launches64, POISSON_HYBRID_KERNELS, "the 64x64 hybrid route")
@@ -1240,10 +1394,10 @@ def main():
     soa_ms = {}
     for name, dg in (("8x8 p5", flagship), ("64x64 p5", dg64)):
         rhs = dg.levels[-1].rhs.to(torch.float32)
-        soa_ms[name] = kern_ms = marginal_ms(cycle_of(dg), rhs)
+        soa_ms[name] = t = in_turns(cycle_of(dg), rhs, 5)
         plain_ms = marginal_ms(cycle_of(dg, reference=True), rhs)
         size, b_ms = cycle_bound(dg)
-        print(f"[7] {name} marginal SoA cycle time: kernels {kern_ms:.4f} ms, plain "
+        print(f"[7] {name} marginal SoA cycle time: kernels {turns_text(t)}; plain "
               f"torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({size / 1e6:.3f} MB of "
               f"operands) ({card})", flush=True)
 
@@ -1258,6 +1412,14 @@ def main():
         timed[kern] = (args, ms, plain_ms)
         print(f"[7] {kern.__name__} at 8x8 p5 shapes: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms ({card})", flush=True)
+    gemm_cases = [args for kern, args in kernel_cases(cyc8, np.random.default_rng(0))
+                  + kernel_cases(cyc_direct, np.random.default_rng(0))[-1:]
+                  if kern is soa.small_gemm]
+    for args in gemm_cases:
+        W, x = args[:2]
+        four_ways(f"[7] small_gemm W {tuple(W.shape)} x {tuple(x.shape)}"
+                  f"{' + base' if len(args) > 2 else ''} (8x8 p5)", soa.small_gemm, args,
+                  small_gemm_library(*args), card)
 
     stokes_launches, stokes_launches32, stokes_ms, dg32 = stokes_phases(card, rng, worst)
     timed.update(stokes_ms)
@@ -1302,8 +1464,8 @@ def main():
     print(f"[14] 64x64 p5 route, block storage bfloat16: {dg64.cycle_kind}, residual "
           f"{dg64.solve_residual:.3e} (normalized), {dg64.outer_rounds} outer rounds "
           f"(float32 storage {hyb['outer_rounds']}), L2(u) {dg64.L2_error_u:.9e} (rel "
-          f"to [6] {rel16:.2e}; nodal u against [6] {sol16:.2e} relative), solve "
-          f"{dg64.solve_seconds:.3f} s; launches {launches64_bf16}", flush=True)
+          f"to [6] {rel16:.2e}; nodal u against [6] {sol16:.2e} relative), "
+          f"{solve_text(dg64)}; launches {launches64_bf16}", flush=True)
     if dg64.cycle_kind != "streamed hybrid":
         raise AssertionError("the bfloat16 64x64 route did not run the hybrid")
     not_launched(launches64_bf16, POISSON_HYBRID_KERNELS, "the bfloat16 64x64 route")
@@ -1326,8 +1488,8 @@ def main():
           f"{dg32.cut} of {n32} levels, FMG seed; residual {dg32.solve_residual:.3e} "
           f"(normalized), inner {dg32.inner}, outer rounds {dg32.rounds}, L2(u) "
           f"{dg32.L2_error_u:.9e}, L2(v) {dg32.L2_error_v:.9e}, L2(p) "
-          f"{dg32.L2_error_p:.9e} (rel to dgtpu {rel_l2}), solve "
-          f"{dg32.solve_seconds:.3f} s; launches {launches32h}", flush=True)
+          f"{dg32.L2_error_p:.9e} (rel to dgtpu {rel_l2}), "
+          f"{solve_text(dg32)}; launches {launches32h}", flush=True)
     if dg32.cycle_kind != "streamed Stokes hybrid" or dg32.cut != n32 - 2:
         raise AssertionError("the 32x32 Stokes route did not stream two levels")
     if not dg32.solve_residual < RES_TOL:
@@ -1336,6 +1498,13 @@ def main():
                  "the 32x32 Stokes hybrid route")
 
     # -- 16: SoA cycle against the hybrids; K7 and bfloat16 K5 per call ------
+    n64 = dg64.levels[-1].rhs.numel()
+    for name, h in (("float32", hyb32), ("bfloat16", hyb16)):
+        check_graph(f"[16] 64x64 p5 hybrid {name} V-cycle", h, n64, 2, rng)
+    hyb_s = stokes_hybrid_of(dg32, budget32)
+    n32s = dg32.levels[-1].rhs.numel()
+    check_graph("[16] 32x32 Stokes hybrid W-cycle", hyb_s, n32s, 2, rng)
+    check_graph("[16] 32x32 Stokes hybrid matvec", hyb_s.build_matvec(), n32s, 1, rng)
     for name, h in (("float32", hyb32), ("bfloat16", hyb16)):
         size = h.bytes_per_cycle()
         print(f"[16] 64x64 p5 hybrid {name}: {size / 1e6:.3f} MB of operators per "
@@ -1344,8 +1513,7 @@ def main():
     cycles_in_turns({"SoA": cycle_of(dg64), "hybrid float32": hyb32,
                      "hybrid bfloat16": hyb16},
                     dg64.levels[-1].rhs.to(torch.float32), 5, "64x64 p5 V-cycle", card)
-    cycles_in_turns({"SoA": stokes_cycle_of(dg32),
-                     "hybrid": stokes_hybrid_of(dg32, budget32)},
+    cycles_in_turns({"SoA": stokes_cycle_of(dg32), "hybrid": hyb_s},
                     dg32.levels[-1].rhs.to(torch.float32), 2, "32x32 Stokes W-cycle", card)
     s32, s16 = hyb32.streams[top], hyb16.streams[top]
     B, C = s32.lv.blocks.shape[2], s32.C
@@ -1400,25 +1568,29 @@ def main():
         by_path = {p: c.get(kernel_name(kern), 0) for p, c in paths.items()}
         args, ms, plain_ms = timed[kern]
         b_ms, b_by = bound(kern, args)
-        library_ms = None
-        if kern is soa.small_gemm:
-            W, x = args[:2]
-            library_ms = cuda_ms(lambda: torch.matmul(W, x), 200)
+        library = None
+        if kern is soa.small_gemm:           # P e + u: one baddbmm
+            library = small_gemm_library(*args)
         elif kern is vcycle.transfer:        # P e + u per cell, as one addmm
             T, x, _, base = args
-            library_ms = cuda_ms(lambda: torch.addmm(base.flatten(0, 1), x.flatten(0, 1),
-                                                     T.T), 200)
+            library = (lambda T=T, x=x, base=base: torch.addmm(
+                base.flatten(0, 1), x.flatten(0, 1), T.T))
         elif kern is vcycle.dense_apply:
             W, x = args
-            library_ms = cuda_ms(lambda: torch.mv(W, x.reshape(-1)), 200)
+            library = lambda W=W, x=x: torch.mv(W, x.reshape(-1))   # noqa: E731
+        library_ms = None if library is None else cuda_ms(library, 200)
+        library_graph_ms = None if library is None else graph_ms(library)
+        kernel_graph_ms = graph_ms(lambda: kern(*args),
+                                   20 if kern is stream.multi_half_sweep else 200)
         source = _kernels.ROLLED_SOURCE if kern in vcycle.KERNELS else _kernels.SOURCE
         record.append({"name": kernel_name(kern), "route": "cuda",
                        "source": os.path.relpath(source, REPO),
                        "replaces": replaces[kern], "launches": sum(by_path.values()),
                        "launches_by_path": by_path, "max_abs_err": worst[kern][0],
                        "max_rel_err": worst[kern][1],
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "library_ms": library_ms})
+                       "ms": ms, "graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                       "library_graph_ms": library_graph_ms})
         if record[-1]["launches"] == 0:
             raise AssertionError(f"{kernel_name(kern)} was launched by no main path")
 

@@ -33,6 +33,7 @@ from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        StokesPolynomialTransfer, assemble_stokes,
                                        pressure_mean_shift,
                                        reorder_global_to_local)
+from dgtpu_torch.ops.graphs import CycleGraph
 from dgtpu_torch.ops.smoothers import element_colors
 from dgtpu_torch.ops.soa import SoAVCycle
 from dgtpu_torch.ops.stokes_soa import _DGS, SoAStokesVCycle
@@ -327,6 +328,7 @@ class DGFEM:
         method = s.solver.method
         finest = self.levels[-1]
         self.logger.debug(f"Solving with {method} method ...")
+        self.graph_seconds = 0.0
         with Timer() as t:
             if method == "direct":
                 u_modal = solve_direct(finest.op, finest.rhs)
@@ -339,12 +341,13 @@ class DGFEM:
                 u_modal, res, n = self._solve_multigrid_full(finest)
                 self.solve_residual, self.cycles = res, n
             synchronize(u_modal)
-        self.solve_seconds = t.elapsed()
+        self.solve_seconds = t.elapsed() - self.graph_seconds
         if method == "multigrid":
             self.logger.info(f"multigrid: {int(n)} cycles or outer rounds, final "
                              f"normalized residual {float(res):.6e}")
             self._save_residual_history("multigrid")
-        self.logger.info(f"Solving with {method} method took {t.elapsed():.4g} seconds")
+        self.logger.info(f"Solving with {method} method took {self.solve_seconds:.4g} "
+                         f"seconds (and {self.graph_seconds:.4g} s capturing CUDA graphs)")
         return self._postprocess(u_modal)
 
     def _solve_multigrid_full(self, finest):
@@ -396,7 +399,12 @@ class DGFEM:
         refinement stalls and the cycle has a matvec (the Stokes cycles:
         deep hierarchies push the stand-alone contraction past 1), the
         refinement retries with GMRES(16)-wrapped cycles (``api.py:557-578``).
-        The route and the cut are left in ``cycle_kind`` and ``cut``."""
+        On the card the chosen cycle (and the GMRES retry's matvec) is
+        captured once as a CUDA graph and replayed (``ops/graphs.py``): dgtpu
+        compiles its refined solve into one XLA program, the port replays a
+        captured cycle; the captures' seconds go to ``graph_seconds``, apart
+        from ``solve_seconds``.  The route and the cut are left in
+        ``cycle_kind`` and ``cut``."""
         s = self.settings
         mg = s.solver.multigrid
         fmg_on = bool(getattr(mg, "full_multigrid", False))
@@ -444,15 +452,24 @@ class DGFEM:
         self.cycle_kind, self.cut = kind, getattr(cycle, "cut", None)
         self.logger.info(f"inner cycle: {kind}, device bytes {held} against the "
                          f"budget {budget}, cut {self.cut}")
+        graphs = []
+
+        def graphed(fn):
+            if self.device.type != "cuda":
+                return fn
+            graphs.append(CycleGraph(fn))
+            return graphs[-1]
+
+        run = graphed(cycle)
         rhs = finest.rhs
         u0 = torch.zeros_like(rhs)
         if fmg_on:
             # the FMG pass's finest-level cycle is the same cycle the
             # refinement runs
-            u0 = cycle.build_fmg(finest_cycle=cycle)(rhs).to(rhs.dtype)
+            u0 = cycle.build_fmg(finest_cycle=run)(rhs).to(rhs.dtype)
             kind += " + FMG guess"
         normalize = "rhs" if fmg_on else "u0"
-        refined = make_refined_solver(finest.op, cycle, n_inner=6, tol=tol,
+        refined = make_refined_solver(finest.op, run, n_inner=6, tol=tol,
                                       normalize=normalize)
         u, res, n, hist = refined(rhs, u0)
         self.residuals = [r for r in hist if math.isfinite(r)]
@@ -465,8 +482,8 @@ class DGFEM:
                 f"mixed-precision refinement stalled at {res:.3e}; retrying "
                 "with f32 GMRES-wrapped inner cycles")
             refined = make_refined_solver(
-                finest.op, cycle, n_inner=16, tol=tol, normalize=normalize,
-                inner="gmres", matvec32=cycle.build_matvec())
+                finest.op, run, n_inner=16, tol=tol, normalize=normalize,
+                inner="gmres", matvec32=graphed(cycle.build_matvec()))
             u, res, n, hist = refined(rhs, u0)
             self.residuals += [r for r in hist if math.isfinite(r)]
             self.inner, self.rounds["gmres"] = "gmres", n
@@ -476,6 +493,8 @@ class DGFEM:
             self.logger.warning(
                 f"mixed-precision refinement stopped at {res:.3e} "
                 f"(tolerance {tol:g})")
+        self.graphed = bool(graphs)
+        self.graph_seconds = sum(g.capture_seconds for g in graphs)
         return u, res, n
 
     def _save_residual_history(self, kind):

@@ -190,16 +190,22 @@ __global__ void transfer_kernel(const float* __restrict__ T,
 }
 
 // R4: out = W x for a row-major dense W (M, M): the coarse level's inverse
-// against its flattened rhs.  One warp per output row, lanes along the row.
+// against its flattened rhs.  One warp per output row, lanes along the row
+// (coalesced), x staged once per CTA in shared memory.  Its device work is
+// ~1 us: launched eagerly the host's launch path bounds it, replayed in the
+// captured rolled cycle (dgtpu_torch/ops/graphs.py) the launch latency.
 __global__ void dense_apply_kernel(const float* __restrict__ W,
                                    const float* __restrict__ x,
                                    float* __restrict__ out, int M) {
+    extern __shared__ float xs[];    // (M)
+    for (int k = threadIdx.x; k < M; k += blockDim.x) xs[k] = x[k];
+    __syncthreads();
     const int m = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (m >= M) return;
     float acc = 0.f;
     for (int k = lane; k < M; k += 32)
-        acc = fmaf(__ldg(W + (size_t)m * M + k), x[k], acc);
+        acc = fmaf(__ldg(W + (size_t)m * M + k), xs[k], acc);
     acc = warp_sum(acc);
     if (lane == 0) out[m] = acc;
 }
@@ -235,7 +241,8 @@ int rolled_transfer(const float* T, const float* x, const float* base, float* ou
 
 int rolled_dense_apply(const float* W, const float* x, float* out, int M,
                        cudaStream_t stream) {
-    dense_apply_kernel<<<(M + WARPS - 1) / WARPS, THREADS, 0, stream>>>(W, x, out, M);
+    dense_apply_kernel<<<(M + WARPS - 1) / WARPS, THREADS, (size_t)M * sizeof(float),
+                         stream>>>(W, x, out, M);
     return (int)cudaGetLastError();
 }
 

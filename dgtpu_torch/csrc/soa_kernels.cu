@@ -43,7 +43,9 @@
 //
 // What bounds them on the card: at 8x8 (C = 32 on the finest level) a kernel
 // is one or two CTAs and a cycle is ~90 (Poisson p5) to ~800 (Stokes
-// W-cycle) launches, so the host's launch rate bounds the cycle; at 64x64 p5
+// W-cycle) launches, so launched eagerly the host's launch rate bounds the
+// cycle; the mixed route therefore replays each cycle as one captured CUDA
+// graph (dgtpu_torch/ops/graphs.py), where launch latency does; at 64x64 p5
 // (C = 2048) K1, K5 and K7 stream the finest level's blocks (53 MB per
 // float32 half-sweep, 26.5 MB in bfloat16), so device-memory bytes bound
 // them.  K7 exists for the second case: it runs a whole smoother
@@ -54,6 +56,8 @@
 // synchronising, and returns cudaGetLastError() (or the launch's own error)
 // as an int.  ``accumulate`` selects ``out = base + result`` (base may be
 // null otherwise).
+
+#include <cstdint>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -282,27 +286,99 @@ __global__ void multi_half_sweep_kernel(const T* __restrict__ blocks,
     }
 }
 
-// K3: out[z] = (base[z] +) W(M,K) . x[z](K,N) for z < batch.  Covers the
-// polynomial restriction / prolongation (pallas_soa.py:364-372, :382-390;
-// W = R (B_c,B) or P (B,B_c), N = C, batch = the two colors), the u += P.e
-// update (accumulate), and the dense coarse inverse (:400-410; M = K =
-// 2 B0 C0, N = 1).  One thread per output; threads along N read x
-// coalesced and W as a broadcast.  K <= 2 B0 C0 is small on every level.
-__global__ void small_gemm_kernel(const float* __restrict__ W,
+// K3: out[z] = (base[z] +) W(M,K) . x[z](K,N) for z < batch, the small
+// dense products of both SoA cycles: the polynomial restriction and
+// prolongation (pallas_soa.py:364-372, :382-390; pallas_stokes.py:436-486,
+// per component; W = R (B_c, B) or P (B, B_c), N = C, batch = the two
+// colors, M, K <= 36), the u += P.e update (accumulate), and the dense
+// coarse inverse (pallas_soa.py:400-410, pallas_stokes.py:490-505; M = K =
+// the coarse unknowns, N = 1).  Its work is a few KB: launched eagerly, the
+// host's launch path bounds it; replayed in a CUDA graph (ops/graphs.py),
+// the launch latency does.  So each shape gets the body that reads every
+// byte once, coalesced, in as few CTAs and passes as it can:
+//
+//   small_gemm_tile_kernel (N > 1)  one CTA per 32-column tile of x, batch
+//       entry and block of 8 output rows, one output per thread: the CTA's
+//       rows of W and the (K, 32) tile of x are staged in shared memory by
+//       coalesced loads while each thread fetches its base element, so the
+//       kernel waits on device memory once; then each thread reduces its
+//       output from shared memory (W as a broadcast) and folds base into the
+//       store.  One output per thread keeps the chain of dependent
+//       multiply-adds K long (a thread of 8 rows per CTA took M / 8 of them
+//       at M = 36).  Sums run k = 0..K-1, the plain version's order.
+//   dense_rows_kernel (N = 1)  one warp per output row: the lanes read the
+//       row of W coalesced, in 16-byte loads when K % 4 == 0 and W is
+//       16-byte aligned, against x staged once per CTA in shared memory,
+//       and reduce by shuffles.
+constexpr int GEMM_ROWS = 8;     // thread rows of a tile CTA
+constexpr int DENSE_WARPS = 8;   // output rows of a dense CTA
+
+__device__ __forceinline__ float warp_sum(float v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+__global__ void small_gemm_tile_kernel(const float* __restrict__ W,
+                                       const float* __restrict__ x,
+                                       const float* __restrict__ base,
+                                       float* __restrict__ out,
+                                       int M, int K, int N, int accumulate) {
+    extern __shared__ float sm[];
+    float* w = sm;                       // (GEMM_ROWS, K): this CTA's rows of W
+    float* xt = sm + GEMM_ROWS * K;      // (K, TC)
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int n = blockIdx.x * TC + tx;
+    const int z = blockIdx.y;
+    const int m0 = blockIdx.z * GEMM_ROWS, m = m0 + ty;
+    const bool valid = n < N && m < M;
+    const size_t o = (size_t)z * M * N + (size_t)m * N + n;
+    const float b = (valid && accumulate) ? base[o] : 0.f;
+    const float* xz = x + (size_t)z * K * N;
+    const int rows = min(GEMM_ROWS, M - m0);
+    for (int i = ty * TC + tx; i < rows * K; i += TC * GEMM_ROWS)
+        w[i] = W[(size_t)m0 * K + i];
+    if (n < N)
+        for (int k = ty; k < K; k += GEMM_ROWS) xt[k * TC + tx] = xz[(size_t)k * N + n];
+    __syncthreads();
+    if (!valid) return;
+    float acc = 0.f;
+    for (int k = 0; k < K; ++k) acc = fmaf(w[ty * K + k], xt[k * TC + tx], acc);
+    out[o] = accumulate ? b + acc : acc;
+}
+
+__global__ void dense_rows_kernel(const float* __restrict__ W,
                                   const float* __restrict__ x,
                                   const float* __restrict__ base,
                                   float* __restrict__ out,
-                                  int M, int K, int N, int accumulate) {
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    const int m = blockIdx.y * blockDim.y + threadIdx.y;
-    const int z = blockIdx.z;
-    if (n >= N || m >= M) return;
-    const float* xz = x + (size_t)z * K * N;
+                                  int M, int K, int accumulate, int vec4) {
+    extern __shared__ float xs[];    // (K)
+    const int z = blockIdx.y;
+    const float* xz = x + (size_t)z * K;
+    for (int k = threadIdx.x; k < K; k += blockDim.x) xs[k] = xz[k];
+    __syncthreads();
+    const int m = blockIdx.x * DENSE_WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (m >= M) return;
+    const float* row = W + (size_t)m * K;
     float acc = 0.f;
-    for (int k = 0; k < K; ++k)
-        acc = fmaf(W[(size_t)m * K + k], xz[(size_t)k * N + n], acc);
-    const size_t o = (size_t)z * M * N + (size_t)m * N + n;
-    out[o] = accumulate ? base[o] + acc : acc;
+    if (vec4) {
+        const float4* r4 = reinterpret_cast<const float4*>(row);
+        const float4* x4 = reinterpret_cast<const float4*>(xs);
+        for (int k = lane; k < K / 4; k += 32) {
+            const float4 a = __ldg(r4 + k), b = x4[k];
+            acc = fmaf(a.x, b.x, acc);
+            acc = fmaf(a.y, b.y, acc);
+            acc = fmaf(a.z, b.z, acc);
+            acc = fmaf(a.w, b.w, acc);
+        }
+    } else {
+        for (int k = lane; k < K; k += 32) acc = fmaf(__ldg(row + k), xs[k], acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+        const size_t o = (size_t)z * M + m;
+        out[o] = accumulate ? base[o] + acc : acc;
+    }
 }
 
 // K4: the 2x2 geometric agglomeration between a fine level (2 njc, 2 nic)
@@ -519,10 +595,18 @@ int soa_multi_half_sweep_ctas(int B, int block_bf16, int* n) {
 int soa_small_gemm(const float* W, const float* x, const float* base, float* out,
                    int M, int K, int N, int batch, int accumulate,
                    cudaStream_t stream) {
-    dim3 block(32, 8);
-    dim3 grid((N + 31) / 32, (M + 7) / 8, batch);
-    small_gemm_kernel<<<grid, block, 0, stream>>>(W, x, base, out, M, K, N,
-                                                  accumulate);
+    if (N == 1) {
+        const int vec4 = K % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+        dense_rows_kernel<<<dim3((M + DENSE_WARPS - 1) / DENSE_WARPS, batch),
+                            32 * DENSE_WARPS, (size_t)K * sizeof(float), stream>>>(
+            W, x, base, out, M, K, accumulate, vec4);
+    } else {
+        small_gemm_tile_kernel<<<dim3((N + TC - 1) / TC, batch,
+                                      (M + GEMM_ROWS - 1) / GEMM_ROWS),
+                                 dim3(TC, GEMM_ROWS),
+                                 (size_t)(GEMM_ROWS + TC) * K * sizeof(float), stream>>>(
+            W, x, base, out, M, K, N, accumulate);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -182,6 +182,10 @@ def small_gemm(W, x, base=None):
     batch, _, N = x.shape
     if base is not None and base.shape != (batch, M, N):
         raise ValueError("small_gemm: base shape mismatch")
+    # N = 1 stages x (K floats), N > 1 8 rows of W and a (K, 32) tile of x
+    if (K if N == 1 else (8 + _TC) * K) > _SMEM_FLOATS:
+        raise ValueError(f"small_gemm: W {tuple(W.shape)} with N={N} exceeds the "
+                         "kernel's shared-memory tile")
     out = torch.empty((batch, M, N), dtype=x.dtype, device=x.device)
     _launch("soa_small_gemm", W.data_ptr(), x.data_ptr(), _ptr(base),
             out.data_ptr(), M, K, N, batch, int(base is not None))
@@ -370,6 +374,9 @@ def rolled_dense_apply(W, x):
     M = x.numel()
     if W.shape != (M, M):
         raise ValueError(f"rolled_dense_apply: W {tuple(W.shape)} vs {M} unknowns")
+    if M > _SMEM_FLOATS:
+        raise ValueError(f"rolled_dense_apply: {M} unknowns exceed the kernel's "
+                         "shared-memory copy of x")
     out = torch.empty_like(x)
     _launch("rolled_dense_apply", W.data_ptr(), x.data_ptr(), out.data_ptr(), M)
     return out

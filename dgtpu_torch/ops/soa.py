@@ -308,21 +308,26 @@ class SoAHierarchy:
             return self._gemm(self.P[k], e, base)
         return self._geo(self.P[k], e, self.dims[k], False, base)
 
+    def _pack_parity(self):
+        """The finest level's row-parity mask ``even`` (Nj, 1, 1), built once
+        on the cycle's device: ``to_soa`` / ``from_soa`` run inside a
+        captured cycle (``ops/graphs.py``), where a host copy is refused."""
+        self.even = rolled.parity_mask(self.dims[-1][0], self.dtype, self.device)
+
     def to_soa(self, v):
         """(N*B,) -> (2, B, C) color lattices in the cycle's dtype."""
         nj, ni = self.dims[-1]
         B = v.numel() // (nj * ni)
         v = v.to(device=self.device, dtype=self.dtype).reshape(nj, ni, B)
-        u0, u1 = rolled.pack_colors(v, rolled.parity_mask(nj, v.dtype, v.device))
+        u0, u1 = rolled.pack_colors(v, self.even)
         return torch.stack([u0.reshape(-1, B).T, u1.reshape(-1, B).T]).contiguous()
 
     def from_soa(self, u):
         nj, ni = self.dims[-1]
         B = u.shape[1]
-        ev = rolled.parity_mask(nj, u.dtype, u.device)
         a = u[0].T.reshape(nj, ni // 2, B)
         b = u[1].T.reshape(nj, ni // 2, B)
-        return rolled.unpack_colors(a, b, ev).reshape(-1)
+        return rolled.unpack_colors(a, b, self.even).reshape(-1)
 
 
 class SoAVCycle(SoAHierarchy):
@@ -368,6 +373,7 @@ class SoAVCycle(SoAHierarchy):
         self.levels = [self._pack_level(op, nj, ni)
                        for op, (nj, ni) in zip(ops, self.dims)]
         self._pack_transfers()
+        self._pack_parity()
         self.coarse_W = (self._coarse_matrix(ops[0])
                          if self.coarse_solver in ("direct", "amg") else None)
 

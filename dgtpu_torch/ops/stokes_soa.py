@@ -170,6 +170,12 @@ class StokesSoAHierarchy:
         return (self._geo(Puv, e_uv, self.dims[k], False, base_uv),
                 self._geo(Pp, e_p, self.dims[k], False, base_p))
 
+    def _pack_parity(self):
+        """The finest level's row-parity mask ``even`` (Nj, 1, 1), built once
+        on the cycle's device: ``to_soa`` / ``from_soa`` run inside a
+        captured cycle (``ops/graphs.py``), where a host copy is refused."""
+        self.even = rolled.parity_mask(self.dims[-1][0], self.dtype, self.device)
+
     def to_soa(self, x):
         """Global [all u; all v; all p] -> (uv (2, 2Nu, C), p (2, Np, C))."""
         nj, ni = self.dims[-1]
@@ -178,10 +184,9 @@ class StokesSoAHierarchy:
         x = x.to(device=self.device, dtype=self.dtype)
         uv = _global_uv_to_elem(x[:2 * n * nu], n, nu).reshape(nj, ni, 2 * nu)
         p = x[2 * n * nu:].reshape(nj, ni, self.npd[-1])
-        ev = rolled.parity_mask(nj, x.dtype, x.device)
 
         def pack(v):
-            a, b = rolled.pack_colors(v, ev)
+            a, b = rolled.pack_colors(v, self.even)
             B = v.shape[-1]
             return torch.stack([a.reshape(-1, B).T, b.reshape(-1, B).T]).contiguous()
 
@@ -189,12 +194,12 @@ class StokesSoAHierarchy:
 
     def from_soa(self, uv, p):
         nj, ni = self.dims[-1]
-        ev = rolled.parity_mask(nj, uv.dtype, uv.device)
 
         def unpack(v):
             B = v.shape[1]
             return rolled.unpack_colors(v[0].T.reshape(nj, ni // 2, B),
-                                        v[1].T.reshape(nj, ni // 2, B), ev).reshape(-1)
+                                        v[1].T.reshape(nj, ni // 2, B),
+                                        self.even).reshape(-1)
 
         n, nu = nj * ni, self.nu[-1]
         return torch.cat([_elem_uv_to_global(unpack(uv), n, nu), unpack(p)])
@@ -280,6 +285,7 @@ class SoAStokesVCycle(StokesSoAHierarchy):
 
         self.levels = [stokes_soa_level(l, self._cast) for l in levels]
         self._pack_transfers()
+        self._pack_parity()
         self.coarse_solver = settings.solver.multigrid.coarse_grid_solver
         self.coarse_W = (self._coarse_matrix(levels[0])
                          if self.coarse_solver in ("direct", "amg") else None)

@@ -166,6 +166,7 @@ class StreamedStokesVCycle(StokesSoAHierarchy):
         self._gemm, self._geo = (soa.PLAIN[k] if reference else k
                                  for k in (soa.small_gemm, soa.geo_transfer))
         self._pack_transfers()
+        self._pack_parity()
 
     def _cycle(self, k, f_mom, f_cont, uv, p):
         if k < self.cut:

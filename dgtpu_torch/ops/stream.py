@@ -259,6 +259,7 @@ class StreamedVCycle(SoAHierarchy):
         self._gemm, self._geo = (soa.PLAIN[k] if reference else k
                                  for k in (soa.small_gemm, soa.geo_transfer))
         self._pack_transfers()
+        self._pack_parity()
         self._kern = {}
 
     def _level_kernels(self, k):

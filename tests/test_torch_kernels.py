@@ -145,12 +145,23 @@ def test_half_sweep_and_residual_kernels(cuda, B, nj, ni, periodic):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M, K, N, batch, base", [
-    (16, 36, 32, 2, False), (36, 16, 32, 2, True), (4, 16, 2048, 2, False),
-    (64, 64, 1, 1, False)])
-def test_small_gemm_kernel(cuda, M, K, N, batch, base):
+@pytest.mark.parametrize("M, K, N, batch, base, offset", [
+    # the tile body (N > 1): polynomial R / P of the p5/p3/p1 and Stokes
+    # velocity / pressure levels, several column tiles, a ragged last tile
+    (16, 36, 32, 2, False, 0), (36, 16, 32, 2, True, 0), (4, 16, 2048, 2, False, 0),
+    (4, 4, 32, 2, True, 0), (36, 36, 96, 2, True, 0), (12, 6, 40, 2, True, 0),
+    (1, 4, 8, 2, False, 0),
+    # the dense body (N = 1): coarse inverses, 16-byte rows or not, a W
+    # that is not 16-byte aligned, and a batch of two
+    (64, 64, 1, 1, False, 0), (28, 28, 1, 1, False, 0), (63, 63, 1, 1, True, 0),
+    (512, 512, 1, 1, False, 0), (4, 4, 1, 1, False, 0), (64, 64, 1, 1, False, 1),
+    (100, 100, 1, 2, True, 0)])
+def test_small_gemm_kernel(cuda, M, K, N, batch, base, offset):
+    """K3's two bodies against the plain version (x @ W, + base)."""
     rng = np.random.default_rng(0)
-    args = [_rand(rng, M, K, device=cuda), _rand(rng, batch, K, N, device=cuda)]
+    flat = _rand(rng, M * K + offset, device=cuda)
+    W = flat[offset:].view(M, K)
+    args = [W, _rand(rng, batch, K, N, device=cuda)]
     if base:
         args.append(_rand(rng, batch, M, N, device=cuda))
     assert _close(soa.small_gemm, tuple(args)) < REL_TOL
@@ -445,7 +456,8 @@ def test_rolled_transfer_kernel(cuda, Bf, Bc, nj_c, ni_c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B, nj, ni", [(4, 1, 1), (4, 2, 2), (9, 1, 3), (16, 4, 4)])
+@pytest.mark.parametrize("B, nj, ni", [(4, 1, 1), (4, 2, 2), (9, 1, 3), (16, 4, 4),
+                                      (7, 2, 2), (36, 2, 2), (32, 4, 4)])
 def test_rolled_dense_apply_kernel(cuda, B, nj, ni):
     rng = np.random.default_rng(0)
     M = nj * ni * B
@@ -503,3 +515,76 @@ def test_rolled_cycle_and_solve_on_the_card(cuda, tmp_path, monkeypatch, cycle, 
     used = vcycle.KERNELS if coarse == "direct" else vcycle.KERNELS[:3]
     assert all(k.launches > 0 for k in used)
     assert not any(k.launches for k in soa.KERNELS)
+
+
+def _graph_case(kind):
+    """(fn, inputs) of one cycle class at 8x8 on the card: a fixed-shape
+    callable the mixed route captures, and random float32 inputs."""
+    import chip_smoke
+    from dgtpu_torch.settings import Settings
+    poisson = kind in ("soa", "hybrid", "hybrid_bf16")
+    if poisson or kind.startswith("rolled"):
+        factors = "8,4,2" if kind.startswith("rolled") else "2"
+        dg = chip_smoke.hierarchy(chip_smoke.settings_for("Rectangle_8X8_nPoly5.xyz", 5,
+                                                          factors=factors))
+    else:
+        dg = chip_smoke.hierarchy(Settings(chip_smoke.stokes_params(8)))
+    ops, dims = [l.op for l in dg.levels], [(l.Nj, l.Ni) for l in dg.levels]
+    if kind == "soa":
+        fn = chip_smoke.cycle_of(dg)
+    elif kind.startswith("hybrid"):
+        budget = soa.SoAVCycle.device_bytes(ops[:-1], dims[:-1], dg.transfers[:-1])
+        fn = chip_smoke.hybrid_of(dg, budget, "bfloat16" if kind.endswith("bf16")
+                                  else "float32")
+    elif kind == "rolled":
+        fn = chip_smoke.rolled_cycle_of(dg)
+    elif kind == "rolled_F_direct":
+        st = dg.settings
+        st.solver.multigrid.cycle_type, st.solver.multigrid.coarse_grid_solver = "F", "direct"
+        fn = chip_smoke.rolled_cycle_of(dg, st)
+    elif kind.startswith("stokes_hybrid"):
+        budget = ss.SoAStokesVCycle.device_bytes(dg.levels[:2], dg.transfers[:1])
+        fn = chip_smoke.stokes_hybrid_of(dg, budget)
+    else:
+        fn = chip_smoke.stokes_cycle_of(dg)
+    if kind.endswith("matvec"):
+        fn = fn.build_matvec()
+    rng = np.random.default_rng(5)
+    n = dg.levels[-1].rhs.numel()
+    inputs = [tuple(_rand(rng, n, device="cuda") for _ in range(1 if kind.endswith("matvec")
+                                                                else 2))
+              for _ in range(2)]
+    return fn, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["soa", "rolled", "rolled_F_direct", "stokes",
+                                  "stokes_matvec", "hybrid", "hybrid_bf16",
+                                  "stokes_hybrid", "stokes_hybrid_matvec"])
+def test_cycle_graph_matches_eager_bit_for_bit(cuda, kind):
+    """A captured cycle (or Stokes matvec) replayed against the same eager
+    call: the same kernels in the same order with no atomics, so the results
+    are equal bit for bit.  Each call returns its own tensor, and after n
+    replays every launch counter is n times the eager call's count."""
+    import chip_smoke
+    from dgtpu_torch.ops.graphs import CycleGraph
+    fn, inputs = _graph_case(kind)
+    g = CycleGraph(fn)
+    first = g(*inputs[0])
+    assert torch.equal(first, fn(*inputs[0]))
+    kept = first.clone()
+    assert torch.equal(g(*inputs[1]), fn(*inputs[1]))
+    assert torch.equal(first, kept)
+    chip_smoke.reset_counts()
+    fn(*inputs[0])
+    per_call = chip_smoke.counts()
+    assert sum(per_call.values()) > 0
+    chip_smoke.reset_counts()
+    for _ in range(3):
+        g(*inputs[1])
+    torch.cuda.synchronize()
+    assert chip_smoke.counts() == {k: 3 * v for k, v in per_call.items()}
+    assert (CycleGraph.replays, CycleGraph.captures) == (3, 0)
+    assert g.capture_seconds > 0
+    with pytest.raises(ValueError, match="differ from the captured call"):
+        g(*(x[:-1] for x in inputs[0]))
