@@ -4,6 +4,15 @@ port builds, runs its CUDA kernels and solves on the card.
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # phases 1-2, then the profile
+    python3 chip_smoke.py --parent DIR   # every phase, with DIR's kernels beside
+
+``--parent DIR`` takes the root of an earlier tree of the repository (for
+example ``git archive <commit> dgtpu_torch/csrc | tar -x -C DIR``): its
+``dgtpu_torch/csrc`` sources are built beside this tree's, and wherever a
+phase times a graphed cycle (7, 12, 21), K5 (12, 16) or R3 (21) it also
+times the earlier tree's kernels on the same inputs, in turns with this
+tree's (earlier, this, this, earlier), and prints whether the two agree
+bit for bit.
 
 Phases (each prints one line; any failure raises, so the exit code is not 0):
   1. the card (name and power limit from nvidia-smi);
@@ -41,7 +50,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      the 32x32 hierarchy;
  12. marginal Stokes W-cycle times (eager and graphed in turns) and
      launches per cycle, per-call times of K5 and K6 beside their plain
-     versions, and K3 at the 8x8 Stokes shapes four ways;
+     versions, K5's A.uv + base, G.p and D.uv + base at the 8x8 and 32x32
+     finest shapes eagerly and in a graph with the grid its launcher picks,
+     and K3 at the 8x8 Stokes shapes four ways;
  13. the streamed kernels against their plain versions: K7 (float32 and
      bfloat16 blocks) and K5 with bfloat16 blocks at the 64x64 p=5 finest
      shapes, K6 (the streamed DG pass) and K5 at the 32x32 Stokes finest
@@ -54,12 +65,14 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      and bfloat16 storage, the 32x32 Stokes W-cycle and matvec); marginal
      cycle times and launches per cycle, SoA cycle against the hybrids,
      eager and graphed in turns, and per-call times of K7 and K5 with
-     bfloat16 blocks beside their plain versions;
+     bfloat16 blocks beside their plain versions (K5's float32 and
+     bfloat16 residuals also in a graph, with their grids);
  17. the rolled cycle's kernels (R1 half-sweep, R2 stencil apply, R3
      transfer, R4 dense apply) against their plain versions at every shape
      of the 8x8 p=5 hierarchy with geometric factors 8,4,2 (B 36, 16, 4;
-     8x8 down to 1x1), of the 4x4 O-grid hierarchy and on a synthetic
-     3-wide level;
+     8x8 down to 1x1), of the 64x64 p=5 hierarchy with factors 64,...,2
+     (R3 on 1 to 4,096 cells: every tile its launcher picks), of the 4x4
+     O-grid hierarchy and on a synthetic 3-wide level;
  18. one whole rolled cycle on that 8x8 p=5 hierarchy, kernel path against
      plain path, and graphed against eager, bit for bit;
  19. the mixed route through the rolled cycle: the CLI at 8x8 p=5 with
@@ -72,8 +85,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      route's L2(u); ``-s`` at 8x8 p=2;
  21. marginal rolled cycle times (eager and graphed in turns) and launches
      per cycle at 8x8 and 64x64 beside the SoA cycle's, per-call times of
-     R1-R4 beside their plain versions and bounds, and R4 four ways beside
-     torch.mv.
+     R1-R4 beside their plain versions and bounds, each call first held to
+     its plain version (R3's per-cell P e + u, geometric restriction and
+     prolongation also in a graph), and R4 four ways beside torch.mv.
 The last lines are the kernels' JSON record (per kernel: launches on the
 main paths, worst error against the plain version, its time eagerly and
 in a graph of 200 launches, the plain version's, the bound from bytes and
@@ -85,7 +99,8 @@ the rest of the repository.
 ``--profile`` runs ``torch.profiler`` over the cycles of the four
 configurations, of the 64x64 streamed hybrids and of the rolled cycle at
 8x8 and 64x64 (kernel, plain and graphed paths:
-device-busy time, device ops per cycle, the top device ops) and over single
+device-busy time, device ops per cycle, the top device ops; for the graphed
+cycles each kernel's launches and device us per cycle) and over single
 calls of the SoA cycles' kernels at the finest levels' shapes (device us
 per call, bytes moved, GB/s).
 """
@@ -95,12 +110,15 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# (soa, rolled) kernel libraries of the earlier tree given by --parent
+PARENT = None
 
 # dgtpu's L2(u) for the same route (8x8 p=5, mixed precision), computed on a
 # CPU with the JAX reference package:
@@ -276,34 +294,91 @@ def four_ways(label, kern, args, library, card):
     return times
 
 
+@contextlib.contextmanager
+def kernels_of(libs):
+    """Inside the block the kernel wrappers launch from ``libs`` (soa,
+    rolled), the earlier tree's libraries; None leaves this tree's."""
+    from dgtpu_torch.ops import _kernels
+    saved = _kernels.library, _kernels.rolled_library
+    if libs is not None:
+        _kernels.library, _kernels.rolled_library = (lambda: libs[0]), (lambda: libs[1])
+    try:
+        yield
+    finally:
+        _kernels.library, _kernels.rolled_library = saved
+
+
+def parent_turns(label, fn, time_fn, card, bitwise):
+    """With ``--parent``: ``fn()`` under the earlier tree's kernels against
+    this tree's (bit for bit where ``bitwise``, else relative), then
+    ``time_fn()`` under both in turns (earlier, this, this, earlier);
+    prints them.  Without it, nothing."""
+    import torch
+    if PARENT is None:
+        return
+    with kernels_of(PARENT):
+        old = fn()
+    new = fn()
+    torch.cuda.synchronize()
+    same = torch.equal(old, new)
+    rel = float((new - old).abs().max() / max(float(old.abs().max()), 1e-30))
+    times = {"earlier": [], "this": []}
+    for name in ("earlier", "this", "this", "earlier"):
+        with kernels_of(PARENT if name == "earlier" else None):
+            times[name].append(time_fn())
+    print(f"{label}, earlier tree against this one: equal bit for bit {same} (rel "
+          f"{rel:.2e}); ms earlier {times['earlier'][0]:.5f}, {times['earlier'][1]:.5f}, "
+          f"this {times['this'][0]:.5f}, {times['this'][1]:.5f} ({card})", flush=True)
+    if bitwise and not same:
+        raise AssertionError(f"{label}: the results changed from the earlier tree's")
+
+
 # host operations of one graphed call: the replay, the two input copies and
 # the clone of the output
 GRAPH_HOST_OPS = 4
 
 
-def in_turns(cyc, rhs, k):
+def in_turns(cyc, rhs, k, bitwise=True):
     """Marginal ms of ``cyc`` eager and replayed as a CUDA graph, in turns
     (eager, graph, graph, eager); with the capture's ms and the kernel
-    launches per cycle."""
+    launches per cycle.  With ``--parent`` the same cycle is also captured
+    with the earlier tree's kernels, held to this tree's graph (bit for bit
+    where ``bitwise``) and timed between the two graphed turns (graph,
+    earlier, earlier, graph)."""
     import torch
     from dgtpu_torch.ops.graphs import CycleGraph
     graph = CycleGraph(cyc)
     zero = torch.zeros_like(rhs)
     graph(rhs, zero)
     reset_counts()
-    graph(rhs, zero)
+    out = graph(rhs, zero)
     torch.cuda.synchronize()
     launches = sum(counts().values())
-    e1, g1, g2, e2 = (marginal_ms(f, rhs, k) for f in (cyc, graph, graph, cyc))
-    return {"eager": (e1, e2), "graph": (g1, g2),
-            "capture_ms": graph.capture_seconds * 1e3, "launches": launches}
+    t = {"capture_ms": graph.capture_seconds * 1e3, "launches": launches}
+    if PARENT is None:
+        e1, g1, g2, e2 = (marginal_ms(f, rhs, k) for f in (cyc, graph, graph, cyc))
+        return {**t, "eager": (e1, e2), "graph": (g1, g2)}
+    earlier = CycleGraph(cyc)
+    with kernels_of(PARENT):
+        old = earlier(rhs, zero)
+    torch.cuda.synchronize()
+    if bitwise and not torch.equal(old, out):
+        raise AssertionError("the graphed cycle's results changed from the earlier "
+                             "tree's")
+    e1, g1, p1, p2, g2, e2 = (marginal_ms(f, rhs, k)
+                              for f in (cyc, graph, earlier, earlier, graph, cyc))
+    return {**t, "eager": (e1, e2), "graph": (g1, g2), "earlier": (p1, p2),
+            "earlier_rel": float((out - old).abs().max() / old.abs().max())}
 
 
 def turns_text(t):
+    earlier = ("" if "earlier" not in t else
+               f"; the earlier tree's kernels graphed {t['earlier'][0]:.4f}, "
+               f"{t['earlier'][1]:.4f} ms (rel {t['earlier_rel']:.2e} from this tree's)")
     return (f"eager {t['eager'][0]:.4f}, {t['eager'][1]:.4f} ms, graphed "
             f"{t['graph'][0]:.4f}, {t['graph'][1]:.4f} ms (capture "
-            f"{t['capture_ms']:.1f} ms); {t['launches']} kernel launches per cycle, "
-            f"{GRAPH_HOST_OPS} host operations per graphed cycle")
+            f"{t['capture_ms']:.1f} ms){earlier}; {t['launches']} kernel launches per "
+            f"cycle, {GRAPH_HOST_OPS} host operations per graphed cycle")
 
 
 def check_graph(label, fn, n, n_in, rng):
@@ -335,6 +410,26 @@ def check_graph(label, fn, n, n_in, rng):
           f"3 x {sum(per_call.values())} kernel launches "
           f"{ {k: v for k, v in per_call.items() if v} }; capture "
           f"{graph.capture_seconds * 1e3:.1f} ms", flush=True)
+
+
+def k5_times(label, args, card):
+    """K5 at ``args`` eagerly and in a graph beside its bound, with the grid
+    its launcher picks (and with ``--parent`` the earlier tree's K5 both
+    ways in turns); prints them."""
+    from dgtpu_torch.ops import _kernels, soa
+    blk = args[1]
+    label = (f"{label} ({blk.shape[2]} -> {blk.shape[3]} modes, C {blk.shape[4]}, "
+             f"{str(blk.dtype)[6:]} blocks)")
+    ms = cuda_ms(lambda: soa.stencil_apply(*args), 200)
+    g_ms = graph_ms(lambda: soa.stencil_apply(*args))
+    b_ms, b_by = bound(soa.stencil_apply, args)
+    gx, gy, gz, threads = _kernels.stencil_apply_grid(blk.shape[3], blk.shape[4])
+    print(f"{label}: kernel {ms:.5f} ms eager, {g_ms:.5f} ms in a graph, bound "
+          f"{b_ms:.6f} ms ({b_by}); grid {gx}x{gy}x{gz} = {gx * gy * gz} CTAs of "
+          f"{threads} threads ({card})", flush=True)
+    run = lambda: soa.stencil_apply(*args)          # noqa: E731
+    parent_turns(f"{label} eager", run, lambda: cuda_ms(run, 200), card, True)
+    parent_turns(f"{label} in a graph", run, lambda: graph_ms(run), card, True)
 
 
 def solve_text(dg):
@@ -633,6 +728,13 @@ def stokes_phases(card, rng, worst):
             print(f"[12] {kern.__name__} at {name} Stokes finest shapes: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({card})", flush=True)
             stokes_ms.setdefault(kern, (args, ms, plain_ms))   # the 8x8 times
+        Bu, Np, C = lv.A.shape[2], lv.G.shape[2], lv.A.shape[4]
+        rand = _rand(rng)
+        uv, p = rand(2, Bu, C), rand(2, Np, C)
+        for what, args in (("A.uv + base", (lv, lv.A, uv, rand(2, Bu, C), -1.0)),
+                           ("G.p", (lv, lv.G, p)),
+                           ("D.uv + base", (lv, lv.D, uv, rand(2, Np, C), -1.0))):
+            k5_times(f"[12] K5 {what} at {name} Stokes finest shapes", args, card)
     return launches, launches32, stokes_ms, dg32
 
 
@@ -837,6 +939,17 @@ def profile(card):
                   f"calls/cycle, us/cycle) "
                   f"{[(k[:40], v[0] / calls, round(v[1] / calls, 2)) for k, v in top]} "
                   f"({card})", flush=True)
+            if mode == "graphed":
+                by_kernel = {}
+                for op, (n_op, us) in ops.items():
+                    found = re.search(r"(\w+_kernel)\b", op)
+                    d = by_kernel.setdefault(found.group(1) if found else op[:30], [0, 0.0])
+                    d[0] += n_op
+                    d[1] += us
+                per_cycle = {k: (v[0] / calls, round(v[1] / calls, 2)) for k, v in
+                             sorted(by_kernel.items(), key=lambda kv: -kv[1][1])}
+                print(f"[prof] {name} graphed, by kernel (launches, device us per "
+                      f"cycle): {per_cycle} ({card})", flush=True)
         cyc = cycle(dg)
         if not hasattr(cyc, "levels") or cycle is rolled_cycle_of:
             continue                         # the hybrids and the rolled cycle: cycles only
@@ -1080,19 +1193,21 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
     direct_settings.solver.multigrid.coarse_grid_solver = "direct"
     direct_settings.solver.multigrid.cycle_type = "F"
     cyc8_direct = rolled_cycle_of(flagship, direct_settings)
+    t0 = time.perf_counter()
+    dg64 = hierarchy(settings_for("Rectangle_64X64_nPoly5.xyz", 5,
+                                  factors="64,32,16,8,4,2", fmg=True))
+    setup_s = time.perf_counter() - t0
     for name, cases in (
             ("8x8 p5 factors 8,4,2", rolled_kernel_cases(cyc8, rng)),
             ("direct coarse", rolled_kernel_cases(cyc8_direct, rng)[-1:]),
+            ("64x64 p5 factors 64,...,2", rolled_kernel_cases(rolled_cycle_of(dg64), rng)),
             ("4x4 O-grid p2", rolled_kernel_cases(rolled_cycle_of(ogrid), rng)),
             ("synthetic 2x3", rolled_level_cases(synthetic_rolled_level(rng, 16, 2, 3),
                                                  _rand(rng))),
             ("synthetic 3x1", rolled_level_cases(synthetic_rolled_level(rng, 36, 3, 1),
                                                  _rand(rng)))):
         check_kernels(cases, f"17 {name}", worst)
-    for kern in vcycle.KERNELS:
-        if not worst[kern][1] <= ROLLED_REL_TOL:
-            raise AssertionError(f"{kernel_name(kern)} is {worst[kern][1]:.3e} from its "
-                                 f"plain version (bar {ROLLED_REL_TOL:g})")
+    check_rolled(worst)
 
     # -- 18: one whole rolled cycle, kernel path vs plain path ---------------
     rhs = flagship.levels[-1].rhs
@@ -1138,10 +1253,6 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
     not_launched(paths["rolled_8x8"], rolled_names[:3], "the rolled 8x8 route")
     not_launched(paths["rolled_8x8_F_direct"], rolled_names, "the rolled F-cycle route")
 
-    t0 = time.perf_counter()
-    dg64 = hierarchy(settings_for("Rectangle_64X64_nPoly5.xyz", 5,
-                                  factors="64,32,16,8,4,2", fmg=True))
-    setup_s = time.perf_counter() - t0
     reset_counts()
     dg64.solve()
     torch.cuda.synchronize()
@@ -1213,7 +1324,7 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
         cyc(rhs, torch.zeros_like(rhs))
         torch.cuda.synchronize()
         per_cycle = {n: c for n, c in counts().items() if c}
-        t = in_turns(cyc, rhs, k)
+        t = in_turns(cyc, rhs, k, bitwise=False)
         plain_ms = marginal_ms(rolled_cycle_of(dg, reference=True), rhs, k)
         size = cyc.device_bytes()
         print(f"[21] {name} marginal rolled cycle time ({len(dg.levels)} levels): kernels "
@@ -1237,16 +1348,29 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
                 cyc.P[top], rand(*cyc.levels[top].Dinv.shape[:3]), False, u)),
             "R3 finest geometric restriction": (vcycle.transfer, (
                 cyc.R[geo], rand(*cyc.levels[geo + 1].Dinv.shape[:3]), True)),
+            "R3 finest geometric prolongation + u": (vcycle.transfer, (
+                cyc.P[geo], rand(*cyc.levels[geo].Dinv.shape[:3]), False,
+                rand(*cyc.levels[geo + 1].Dinv.shape[:3]))),
             "R4 dense inverse of the 1x1 coarsest level": (vcycle.dense_apply, (
                 rand(math.prod(shape0), math.prod(shape0)), rand(*shape0))),
         }
+        check_kernels(list(calls.values()), f"21 {name}", worst)
+        check_rolled(worst)
         for label, (kern, args) in calls.items():
             ms = cuda_ms(lambda: kern(*args), 200)
             p_ms = cuda_ms(lambda: plain_version(kern)(*args), 50)
             b_ms, b_by = bound(kern, args)
-            print(f"[21] {label} at {name} finest shapes: kernel {ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
+            in_graph = (f", {graph_ms(lambda: kern(*args)):.5f} ms in a graph"
+                        if kern is vcycle.transfer else "")
+            print(f"[21] {label} at {name} finest shapes: kernel {ms:.4f} ms{in_graph}, "
+                  f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
                   f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
+            if kern is vcycle.transfer:
+                run = lambda: kern(*args)              # noqa: E731
+                for how, time_fn in (("eager", lambda: cuda_ms(run, 200)),
+                                     ("in a graph", lambda: graph_ms(run))):
+                    parent_turns(f"[21] {label} at {name} finest shapes, {how}", run,
+                                 time_fn, card, False)
             if name == "64x64 p5":
                 timed.setdefault(kern, (args, ms, p_ms))
             if kern is vcycle.dense_apply:
@@ -1254,6 +1378,15 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
                 four_ways(f"[21] R4 dense apply W {tuple(W.shape)} ({name})", kern, args,
                           lambda: torch.mv(W, x.reshape(-1)), card)
     return paths, timed
+
+
+def check_rolled(worst):
+    """Each rolled kernel's worst error so far within ROLLED_REL_TOL."""
+    from dgtpu_torch.ops import vcycle
+    for kern in vcycle.KERNELS:
+        if not worst[kern][1] <= ROLLED_REL_TOL:
+            raise AssertionError(f"{kernel_name(kern)} is {worst[kern][1]:.3e} from its "
+                                 f"plain version (bar {ROLLED_REL_TOL:g})")
 
 
 def check_stokes_errors(dg, n):
@@ -1267,7 +1400,15 @@ def check_stokes_errors(dg, n):
 
 
 def main():
+    global PARENT
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="phases 1-2, then the torch.profiler breakdown")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="root of an earlier tree whose kernels are timed beside")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1283,12 +1424,18 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    _kernels.build_all()
+    sources = [_kernels.SOURCE, _kernels.ROLLED_SOURCE]
+    if opts.parent:
+        csrc = os.path.join(os.path.abspath(opts.parent), "dgtpu_torch", "csrc")
+        sources += [os.path.join(csrc, os.path.basename(f)) for f in sources]
+    _kernels.build_all(sources)
     _kernels.library(), _kernels.rolled_library()
-    print(f"[2] built {os.path.relpath(_kernels.SOURCE, REPO)} and "
-          f"{os.path.relpath(_kernels.ROLLED_SOURCE, REPO)} with nvcc for sm_90a, one "
-          f"process each, in {time.perf_counter() - t0:.2f} s", flush=True)
-    if "--profile" in sys.argv[1:]:
+    if opts.parent:
+        PARENT = _kernels.libraries_from(csrc)
+    print(f"[2] built {', '.join(os.path.relpath(f, REPO) for f in sources)} with nvcc "
+          f"for sm_90a, one process each, in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if opts.profile:
         profile(card)
         print(card)
         return 0
@@ -1544,6 +1691,8 @@ def main():
                   f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
             if kern is stream.multi_half_sweep:
                 timed.setdefault(kern, (args, ms, plain_ms))
+            elif kern is soa.stencil_apply:
+                k5_times(f"[16] {name} at {shapes} streamed finest shapes", args, card)
 
     rolled_paths, rolled_ms = rolled_phases(card, rng, worst, ogrid, u_soa, soa_ms)
     timed.update(rolled_ms)

@@ -42,7 +42,8 @@
 // warp reads 32 consecutive cells.
 //
 // What bounds them on the card: at 8x8 (C = 32 on the finest level) a kernel
-// is one or two CTAs and a cycle is ~90 (Poisson p5) to ~800 (Stokes
+// is one or two CTAs (K5 spreads its output modes over up to Bd CTAs per
+// color, below) and a cycle is ~90 (Poisson p5) to ~800 (Stokes
 // W-cycle) launches, so launched eagerly the host's launch rate bounds the
 // cycle; the mixed route therefore replays each cycle as one captured CUDA
 // graph (dgtpu_torch/ops/graphs.py), where launch latency does; at 64x64 p5
@@ -57,11 +58,14 @@
 // as an int.  ``accumulate`` selects ``out = base + result`` (base may be
 // null otherwise).
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "device_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -438,32 +442,171 @@ __global__ void geo_transfer_kernel(const float* __restrict__ T4,
 }
 
 // K5: out_c = (base_c +) sign * (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))
-// for both colors (blockIdx.y), rectangular blocks (5, Bs, Bd, C) per color
-// of storage type T.  The CTA stages the five fields of Bs modes for its 32
-// cells (5*Bs*TC floats), then each thread row reduces output modes
-// a = ty, ty+ny, ....
-template <typename T>
-__global__ void stencil_apply_kernel(const T* __restrict__ blocks,
-                                     const float* __restrict__ x,
-                                     const float* __restrict__ base,
-                                     float* __restrict__ out,
-                                     int Bs, int Bd, int C, int nh, int periodic,
-                                     float sign, int accumulate) {
+// for both colors, rectangular blocks (5, Bs, Bd, C) per color of storage
+// type T.  Its callers range from C = 2 (a Stokes 2x2 level) to C = 2048
+// (64x64 p5) and from Bd = 1 to 36, so one CTA per 32-cell tile (the old
+// grid) left the card almost empty: 2 CTAs at 8x8, 128 at 64x64 p5, each
+// thread walking ceil(Bd / 8) output modes one after another.  Each output
+// is a chain of 5 Bs dependent multiply-adds whose block elements come from
+// device memory (or L2), so the kernel is bound by loads in flight, not by
+// arithmetic; the grid spreads the output modes over the card:
+//
+//   grid (cell tiles, 2 colors, output-mode groups), one output per thread:
+//   thread (tx, ty) of group g takes cell tile * 32 + tx and output mode
+//   a = g * rows + ty.  The warp stays along C, so every block read is one
+//   coalesced 128-byte (float32) or 64-byte (bfloat16) load.
+//   Rule (stencil_grid): with need = ceil(SMs / (2 tiles)) groups for one
+//   CTA per SM, a group takes rows = min(K5_MAX_ROWS, max(1, Bd / need))
+//   output modes (rounded down), groups = ceil(Bd / rows), and then the
+//   modes are spread evenly, rows = ceil(Bd / groups).  So the grid has at
+//   least one CTA per SM wherever Bd >= need (else one CTA per mode and
+//   tile), and a CTA at most K5_MAX_ROWS thread rows.  The 8x8 Stokes
+//   finest A.uv (Bd 18, C 32) runs 36 CTAs, the 64x64 p5 residual (Bd 36,
+//   C 2048) 384 CTAs of 12 rows.
+//   A CTA has at least K5_MIN_WARPS warps: all of them stage the fields,
+//   the first ``rows`` compute.
+//
+// Each CTA stages the five fields of its 32 cells (5 Bs TC floats) by
+// asynchronous copies (cp.async), all in flight together; each thread
+// fetches its base element before the barrier.  The block elements go
+// through the read-only path, and for the Bs of the port's levels the b
+// loop is unrolled and the slot loop double-buffered: a thread issues slot
+// s + 1's Bs loads before slot s's multiply-adds, so about 2 Bs loads are in
+// flight and the five slots cost about one round trip (any other Bs takes a
+// body unrolled by 8).  The sums keep the old kernel's order (slot 0..4, b
+// 0..Bs-1, one fmaf chain per output), so the results are the same bit for
+// bit; the slot sum is not split across threads.
+constexpr int K5_MAX_ROWS = 16;   // output modes (thread rows) per CTA at most
+constexpr int K5_MIN_WARPS = 4;   // warps that stage the fields at least
+
+// ``stage_fields`` by asynchronous copies: the (slot, mode) rows spread over
+// the CTA's ny thread rows, one wait at the end.
+__device__ __forceinline__ void stage_fields_async(float* fld, const float* __restrict__ x,
+                                                   int color, int B, int C, int q, int tx,
+                                                   int ty, int ny, int nh, int periodic) {
+    const size_t BC = (size_t)B * C;
+    const float* own = x + (size_t)color * BC + q;
+    const float* o = x + (size_t)(1 - color) * BC;
+    for (int b = ty; b < B; b += ny) cp_async4(fld + b * TC + tx, own + (size_t)b * C);
+    for (int s = 0; s < 4; ++s) {
+        const float* src = o + nbr_lane(q, s, color, C, nh, periodic);
+        for (int b = ty; b < B; b += ny)
+            cp_async4(fld + ((s + 1) * B + b) * TC + tx, src + (size_t)b * C);
+    }
+    cp_async_wait_all();
+}
+
+// kBs > 0: Bs known at compile time (the b loop fully unrolled, the slots
+// double-buffered); 0: any Bs.
+template <typename T, int kBs>
+__global__ void __launch_bounds__(TC * K5_MAX_ROWS)
+stencil_apply_kernel(const T* __restrict__ blocks, const float* __restrict__ x,
+                     const float* __restrict__ base, float* __restrict__ out,
+                     int Bs_any, int Bd, int C, int nh, int periodic, float sign,
+                     int accumulate, int rows) {
     extern __shared__ float fld[];   // (5, Bs, TC)
-    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
+    const int Bs = kBs > 0 ? kBs : Bs_any;
+    const int tx = threadIdx.x, ty = threadIdx.y;
     const int color = blockIdx.y;
     const int q = blockIdx.x * TC + tx;
+    const int a = blockIdx.z * rows + ty;
     const bool valid = q < C;
+    const bool active = valid && ty < rows && a < Bd;
+    const size_t o = (size_t)color * Bd * C + (size_t)a * C + q;
+    const float b0 = (active && accumulate) ? base[o] : 0.f;
     if (valid)
-        stage_fields(fld, x, color, Bs, C, q, tx, ty, ny, nh, periodic);
+        stage_fields_async(fld, x, color, Bs, C, q, tx, ty, blockDim.y, nh, periodic);
     __syncthreads();
-    if (!valid) return;
-    const T* blk = blocks + (size_t)color * 5 * Bs * Bd * C;
-    for (int a = ty; a < Bd; a += ny) {
-        const float y = sign * stencil_row(blk, fld, 0, a, Bs, Bd, C, q, tx);
-        const size_t o = (size_t)color * Bd * C + (size_t)a * C + q;
-        out[o] = accumulate ? base[o] + y : y;
+    if (!active) return;
+    const size_t step = (size_t)Bd * C;     // from mode b to b + 1 of one slot
+    const T* blk = blocks + (size_t)color * 5 * Bs * step + (size_t)a * C + q;
+    float acc = 0.f;
+    if constexpr (kBs > 0) {
+        float v[kBs], w[kBs];
+#pragma unroll
+        for (int b = 0; b < kBs; ++b) v[b] = ldg_f(blk + b * step);
+#pragma unroll
+        for (int s = 0; s < 5; ++s) {
+            if (s < 4) {
+                const T* A = blk + (size_t)(s + 1) * kBs * step;
+#pragma unroll
+                for (int b = 0; b < kBs; ++b) w[b] = ldg_f(A + b * step);
+            }
+            const float* f = fld + s * kBs * TC + tx;
+#pragma unroll
+            for (int b = 0; b < kBs; ++b) acc = fmaf(v[b], f[b * TC], acc);
+            if (s < 4) {
+#pragma unroll
+                for (int b = 0; b < kBs; ++b) v[b] = w[b];
+            }
+        }
+    } else {
+#pragma unroll 1
+        for (int s = 0; s < 5; ++s) {
+            const T* A = blk + (size_t)s * Bs * step;
+            const float* f = fld + s * Bs * TC + tx;
+            int b = 0;
+            for (; b + 8 <= Bs; b += 8) {
+                float v[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) v[u] = ldg_f(A + (b + u) * step);
+#pragma unroll
+                for (int u = 0; u < 8; ++u) acc = fmaf(v[u], f[(b + u) * TC], acc);
+            }
+            for (; b < Bs; ++b) acc = fmaf(ldg_f(A + b * step), f[b * TC], acc);
+        }
     }
+    const float y = sign * acc;
+    out[o] = accumulate ? b0 + y : y;
+}
+
+// K5's launch geometry for Bd output modes over C cells per color (the rule
+// in the note above): grid (tiles, 2, groups), CTA (TC, warps), ``rows``
+// output modes per CTA.
+struct StencilGrid {
+    int tiles, groups, rows, warps;
+};
+
+cudaError_t stencil_grid(int Bd, int C, StencilGrid* g) {
+    const int sms = sm_count();
+    if (sms == 0) return cudaErrorNoDevice;
+    if (Bd < 1 || C < 1) return cudaErrorInvalidValue;
+    const int tiles = (C + TC - 1) / TC;
+    const int need = (sms + 2 * tiles - 1) / (2 * tiles);
+    const int rows = std::min(K5_MAX_ROWS, std::max(1, Bd / need));
+    const int groups = (Bd + rows - 1) / rows;
+    g->tiles = tiles;
+    g->rows = (Bd + groups - 1) / groups;
+    g->groups = (Bd + g->rows - 1) / g->rows;
+    g->warps = std::max(g->rows, K5_MIN_WARPS);
+    return cudaSuccess;
+}
+
+template <typename T>
+int launch_stencil_apply(const void* blocks, const float* x, const float* base,
+                         float* out, int Bs, int Bd, int C, int nh, int periodic,
+                         float sign, int accumulate, cudaStream_t stream) {
+    StencilGrid g;
+    cudaError_t e = stencil_grid(Bd, C, &g);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(g.tiles, 2, g.groups), block(TC, g.warps);
+    const size_t smem = (size_t)5 * Bs * TC * sizeof(float);
+    const T* b = static_cast<const T*>(blocks);
+#define K5_LAUNCH(n)                                                                 \
+    stencil_apply_kernel<T, n><<<grid, block, smem, stream>>>(                       \
+        b, x, base, out, Bs, Bd, C, nh, periodic, sign, accumulate, g.rows)
+    switch (Bs) {   // the Bs of the port's levels: p5/p3/p2/p1 Poisson, Stokes
+        case 36: K5_LAUNCH(36); break;
+        case 18: K5_LAUNCH(18); break;
+        case 16: K5_LAUNCH(16); break;
+        case 9: K5_LAUNCH(9); break;
+        case 8: K5_LAUNCH(8); break;
+        case 4: K5_LAUNCH(4); break;
+        case 1: K5_LAUNCH(1); break;
+        default: K5_LAUNCH(0); break;
+    }
+#undef K5_LAUNCH
+    return (int)cudaGetLastError();
 }
 
 // K6: one color of the pressure DG half-pass,
@@ -624,18 +767,25 @@ int soa_geo_transfer(const float* T4, const float* x, const float* base, float* 
 int soa_stencil_apply(const void* blocks, const float* x, const float* base,
                       float* out, int Bs, int Bd, int C, int nh, int periodic,
                       float sign, int accumulate, int block_bf16, cudaStream_t stream) {
-    dim3 block(TC, mode_lanes(Bd));
-    dim3 grid((C + TC - 1) / TC, 2);
-    size_t smem = (size_t)5 * Bs * TC * sizeof(float);
     if (block_bf16)
-        stencil_apply_kernel<__nv_bfloat16><<<grid, block, smem, stream>>>(
-            static_cast<const __nv_bfloat16*>(blocks), x, base, out, Bs, Bd, C, nh,
-            periodic, sign, accumulate);
-    else
-        stencil_apply_kernel<float><<<grid, block, smem, stream>>>(
-            static_cast<const float*>(blocks), x, base, out, Bs, Bd, C, nh, periodic,
-            sign, accumulate);
-    return (int)cudaGetLastError();
+        return launch_stencil_apply<__nv_bfloat16>(blocks, x, base, out, Bs, Bd, C, nh,
+                                                   periodic, sign, accumulate, stream);
+    return launch_stencil_apply<float>(blocks, x, base, out, Bs, Bd, C, nh, periodic,
+                                       sign, accumulate, stream);
+}
+
+// K5's launch geometry for Bd output modes over C cells per color:
+// dims = {grid x, grid y, grid z, threads per CTA}.
+int soa_stencil_apply_grid(int Bd, int C, int* dims) {
+    StencilGrid g;
+    const cudaError_t e = stencil_grid(Bd, C, &g);
+    if (e == cudaSuccess) {
+        dims[0] = g.tiles;
+        dims[1] = 2;
+        dims[2] = g.groups;
+        dims[3] = TC * g.warps;
+    }
+    return (int)e;
 }
 
 int soa_dg_half_sweep(const float* D_c, const float* dgd_c, const float* dgi_c,

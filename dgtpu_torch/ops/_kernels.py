@@ -7,8 +7,9 @@ rolled cycle).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (never at import: the CPU tests import
-every module), cached under ``build/dgtpu_torch/`` by the source's hash, and
-loaded with ``ctypes``.  Each launcher checks device, dtype, shape and
+every module), cached under ``build/dgtpu_torch/`` by the hash of the source
+and of the headers beside it (``csrc/*.cuh``), and loaded with ``ctypes``.
+Each launcher checks device, dtype, shape and
 contiguity, allocates its output with ``torch.empty``, launches on
 PyTorch's current stream and raises if the launch reports a CUDA error.
 """
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "soa_small_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "soa_geo_transfer": [_P] * 4 + [_I] * 6 + [_P],
     "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
+    "soa_stencil_apply_grid": [_I, _I, ctypes.POINTER(_I)],
     "soa_dg_half_sweep": [_P] * 8 + [_I] * 7 + [_P],
 }
 _ROLLED_SIGNATURES = {
@@ -72,8 +74,13 @@ def _nvcc():
 def build(source=SOURCE):
     """Compile one kernel source unless it is built already; returns the
     shared library's path."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    folder = os.path.dirname(source)
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in [os.path.basename(source)] + sorted(
+            f for f in os.listdir(folder) if f.endswith(".cuh")):
+        with open(os.path.join(folder, name), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(lib):
@@ -88,15 +95,20 @@ def build(source=SOURCE):
     return lib
 
 
-def build_all():
-    """Compile both sources, one nvcc each, started together."""
-    with ThreadPoolExecutor(2) as pool:
-        return list(pool.map(build, (SOURCE, ROLLED_SOURCE)))
+def build_all(sources=(SOURCE, ROLLED_SOURCE)):
+    """Compile the sources (by default both of this package), one nvcc each,
+    started together."""
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return list(pool.map(build, sources))
 
 
 def _load(source, signatures, prefix):
+    """The library built from ``source`` with its entry points bound (those
+    of ``signatures`` that it exports)."""
     lib = ctypes.CDLL(build(source))
     for name, argtypes in signatures.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -116,6 +128,15 @@ def library():
 def rolled_library():
     """The loaded library of the rolled kernels (built on first call)."""
     return _load(ROLLED_SOURCE, _ROLLED_SIGNATURES, "rolled")
+
+
+def libraries_from(csrc):
+    """The (SoA, rolled) libraries built from ``soa_kernels.cu`` and
+    ``rolled_kernels.cu`` in the directory ``csrc``: another tree's kernels,
+    to time beside this package's."""
+    return (_load(os.path.join(csrc, os.path.basename(SOURCE)), _SIGNATURES, "soa"),
+            _load(os.path.join(csrc, os.path.basename(ROLLED_SOURCE)),
+                  _ROLLED_SIGNATURES, "rolled"))
 
 
 def _check(*tensors, blocks=()):
@@ -229,6 +250,18 @@ def stencil_apply(blocks, x, nh, periodic, base=None, sign=1.0):
     return out
 
 
+def stencil_apply_grid(Bd, C):
+    """K5's launch geometry for Bd output modes over C cells per color:
+    (grid x, grid y, grid z, threads per CTA), as the launcher picks it on
+    this card."""
+    dims = (ctypes.c_int * 4)()
+    code = library().soa_stencil_apply_grid(int(Bd), int(C), dims)
+    if code != 0:
+        raise RuntimeError(f"soa_stencil_apply_grid failed: CUDA error {code} "
+                           f"({library().soa_error_string(code).decode()})")
+    return tuple(dims)
+
+
 def dg_half_sweep(D, DG_diag, DG_Dinv, rhs, p, g, color, nh, periodic, base=None):
     """K6; see ``ops.stokes_soa.dg_half_sweep``."""
     _check(D, DG_diag, DG_Dinv, rhs, p, g, *_opt(base))
@@ -300,8 +333,10 @@ def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
     return out
 
 
-# R1..R3 stage at most 5 * B floats of shared memory per CTA
+# R1 and R2 stage at most 5 * B floats of shared memory per CTA
 _MAX_ROLLED_B = _SMEM_FLOATS // 5
+# R3: a CTA takes at most XFER_THREADS * XFER_OUTS outputs (rolled_kernels.cu)
+_XFER_OUTPUTS = 256 * 8
 
 
 def _rolled_level(name, blocks, *vectors):
@@ -359,8 +394,13 @@ def rolled_transfer(T, x, restrict=False, base=None):
     if base is not None and (mode == 1 or base.shape != (njo, nio, Bout)):
         raise ValueError("rolled_transfer: base is the output-grid addend of a "
                          "per-cell transfer or a prolongation")
-    if 4 * Bin > _SMEM_FLOATS:
-        raise ValueError(f"rolled_transfer: B_in={Bin} exceeds the kernel's "
+    # a CTA stages T (four matrices in modes 1 and 2) and the inputs of its
+    # output cells, each at an odd stride; the launcher shrinks its tile of
+    # cells to fit, down to one cell
+    k = (4 if mode == 1 else 1) * Bin
+    if (1 if mode == 0 else 4) * Bout * (Bin | 1) + (k | 1) > _SMEM_FLOATS \
+            or Bout > _XFER_OUTPUTS:
+        raise ValueError(f"rolled_transfer: T {tuple(T.shape)} exceeds the kernel's "
                          "shared-memory tile")
     out = torch.empty((njo, nio, Bout), dtype=x.dtype, device=x.device)
     _launch("rolled_transfer", T.data_ptr(), x.data_ptr(), _ptr(base), out.data_ptr(),

@@ -224,21 +224,38 @@ def _stokes_level(rng, Bu, Np, nj, ni, periodic, device):
 
 
 # (2Nu, Np, Nj, Ni): the p2/p1 and p1/p0 levels of the Stokes hierarchies
-STOKES_SHAPES = [(18, 4, 4, 4), (8, 1, 8, 8), (18, 4, 32, 32), (8, 1, 2, 2)]
+# (C = 2, 8, 32 and 512 cells per color), a p5 block on the 8x8 and 64x64
+# grids, and C = 30 and 72, not multiples of 32
+STOKES_SHAPES = [(18, 4, 4, 4), (8, 1, 8, 8), (18, 4, 32, 32), (8, 1, 2, 2),
+                 (18, 4, 2, 2), (18, 4, 8, 8), (8, 1, 4, 4), (8, 1, 32, 32),
+                 (36, 4, 8, 8), (36, 4, 64, 64), (18, 4, 6, 10), (8, 1, 12, 12)]
+
+
+def _bitwise_stable(kern, args):
+    """Two launches of ``kern`` give the same bits (no atomics, one order of
+    sums)."""
+    first = kern(*args)
+    return torch.equal(first, kern(*args))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("Bu, Np, nj, ni", STOKES_SHAPES)
 def test_stencil_apply_and_dg_half_sweep_kernels(cuda, Bu, Np, nj, ni, periodic):
+    """K5 on the three Stokes stencils (A: Bu -> Bu, G: Np -> Bu, D: Bu ->
+    Np) with float32 and bfloat16 blocks, as a matvec and with a base and
+    sign -1, whatever grid K5's launcher picks for (Bd, C); K6 on both
+    colors."""
     rng = np.random.default_rng(0)
     lv = _stokes_level(rng, Bu, Np, nj, ni, periodic, cuda)
     C = nj * ni // 2
     for blk, b_src, b_dst in ((lv.A, Bu, Bu), (lv.G, Np, Bu), (lv.D, Bu, Np)):
-        x = _rand(rng, 2, b_src, C, device=cuda)
-        assert _close(soa.stencil_apply, (lv, blk, x)) < REL_TOL
-        base = _rand(rng, 2, b_dst, C, device=cuda)
-        assert _close(soa.stencil_apply, (lv, blk, x, base, -1.0)) < REL_TOL
+        for stored in (blk, blk.to(torch.bfloat16)):
+            x = _rand(rng, 2, b_src, C, device=cuda)
+            assert _close(soa.stencil_apply, (lv, stored, x)) < REL_TOL
+            base = _rand(rng, 2, b_dst, C, device=cuda)
+            assert _close(soa.stencil_apply, (lv, stored, x, base, -1.0)) < REL_TOL
+            assert _bitwise_stable(soa.stencil_apply, (lv, stored, x, base, -1.0))
     rhs, p = (_rand(rng, 2, Np, C, device=cuda) for _ in range(2))
     g = _rand(rng, 2, Bu, C, device=cuda)
     for color in (0, 1):
@@ -320,16 +337,37 @@ def test_multi_half_sweep_grid_limits(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("periodic", [False, True])
-@pytest.mark.parametrize("B, nj, ni", [(36, 64, 64), (16, 8, 8), (4, 2, 2)])
+@pytest.mark.parametrize("B, nj, ni", [(36, 64, 64), (16, 8, 8), (4, 2, 2), (36, 8, 8),
+                                      (36, 2, 2), (16, 32, 32), (9, 4, 4), (5, 6, 10)])
 def test_stencil_apply_kernel_bf16_blocks(cuda, B, nj, ni, periodic):
     """K5 with bfloat16 blocks: the streamed residual with
-    res_storage='bfloat16', and the matvec."""
+    res_storage='bfloat16', and the matvec; B = 5 takes the body for any
+    B_src.  Two launches give the same bits."""
     rng = np.random.default_rng(0)
     lv = _level(rng, B, nj, ni, periodic, cuda)
     blk = lv.blocks.to(torch.bfloat16)
     u, rhs = (_rand(rng, 2, B, nj * ni // 2, device=cuda) for _ in range(2))
     assert _close(soa.stencil_apply, (lv, blk, u, rhs, -1.0)) < REL_TOL
     assert _close(soa.stencil_apply, (lv, blk, u)) < REL_TOL
+    assert _bitwise_stable(soa.stencil_apply, (lv, blk, u, rhs, -1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bd, C", [(18, 32), (4, 32), (1, 2), (8, 8), (36, 32), (8, 128),
+                                   (18, 128), (36, 128), (18, 512), (4, 512), (36, 2048),
+                                   (36, 8192), (18, 300), (5, 1000)])
+def test_stencil_apply_grid(cuda, Bd, C):
+    """K5's launch geometry as its launcher picks it on the card: 32-cell
+    tiles by 2 colors by groups of output modes, at most 16 modes (thread
+    rows) per CTA and at least 4 warps, no empty group, and at least one
+    CTA per SM wherever the modes allow it (else one CTA per mode)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles, colors, groups, threads = _kernels.stencil_apply_grid(Bd, C)
+    rows = -(-Bd // groups)
+    assert (tiles, colors) == (-(-C // 32), 2)
+    assert rows <= 16 and threads == 32 * max(rows, 4)
+    assert groups * rows >= Bd > (groups - 1) * rows
+    assert tiles * colors * groups >= min(sms, tiles * colors * Bd)
 
 
 @pytest.mark.cuda
@@ -437,22 +475,33 @@ def test_rolled_half_sweep_and_stencil_kernels(cuda, B, nj, ni):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bf, Bc, nj_c, ni_c", [(36, 16, 8, 8), (16, 4, 8, 8), (4, 4, 4, 4),
-                                                (4, 4, 1, 1), (9, 9, 1, 3), (36, 36, 32, 32)])
+@pytest.mark.parametrize("Bf, Bc, nj_c, ni_c", [
+    (36, 16, 8, 8), (16, 4, 8, 8), (4, 4, 4, 4), (4, 4, 1, 1), (9, 9, 1, 3),
+    (36, 36, 32, 32),
+    # B_out > B_in and B_out < B_in on odd and 3-cell grids, the 64x64 p5
+    # prolongation (4,096 cells: tiles of fewer than 32 cells), a 1x1 level
+    # at p5, and a 16x16 p1 level (its restriction the largest that takes
+    # the direct body on an H100, its prolongation a tile body)
+    (16, 36, 3, 5), (4, 16, 5, 7), (36, 4, 1, 3), (36, 16, 64, 64), (36, 36, 1, 1),
+    (4, 4, 16, 16)])
 def test_rolled_transfer_kernel(cuda, Bf, Bc, nj_c, ni_c):
-    """R3 per cell (polynomial R, and P onto a base) and as the 2x2
-    restriction and prolongation (with and without a base)."""
+    """R3 per cell (polynomial R, P alone and P onto a base) and as the 2x2
+    restriction and prolongation (with and without a base); two launches
+    give the same bits."""
     rng = np.random.default_rng(0)
     R, P = _rand(rng, Bc, Bf, device=cuda), _rand(rng, Bf, Bc, device=cuda)
     fine = _rand(rng, nj_c, ni_c, Bf, device=cuda)
     coarse = _rand(rng, nj_c, ni_c, Bc, device=cuda)
     assert _rolled_close(vcycle.transfer, R, fine, restrict=True) < REL_TOL
+    assert _rolled_close(vcycle.transfer, P, coarse) < REL_TOL
     assert _rolled_close(vcycle.transfer, P, coarse, base=fine) < REL_TOL
     R4, P4 = _rand(rng, 4, Bc, Bf, device=cuda), _rand(rng, 4, Bf, Bc, device=cuda)
-    fine = _rand(rng, 2 * nj_c, 2 * ni_c, Bf, device=cuda)
-    assert _rolled_close(vcycle.transfer, R4, fine, restrict=True) < REL_TOL
+    fine2 = _rand(rng, 2 * nj_c, 2 * ni_c, Bf, device=cuda)
+    assert _rolled_close(vcycle.transfer, R4, fine2, restrict=True) < REL_TOL
     assert _rolled_close(vcycle.transfer, P4, coarse) < REL_TOL
-    assert _rolled_close(vcycle.transfer, P4, coarse, base=fine) < REL_TOL
+    assert _rolled_close(vcycle.transfer, P4, coarse, base=fine2) < REL_TOL
+    for args in ((R4, fine2, True), (P4, coarse, False, fine2), (P, coarse, False, fine)):
+        assert _bitwise_stable(vcycle.transfer, args)
 
 
 @pytest.mark.cuda
