@@ -41,9 +41,10 @@
 // fast axis make every block read coalesced: for fixed (slot, b_src, b_dst) a
 // warp reads 32 consecutive cells.
 //
-// What bounds them on the card: at 8x8 (C = 32 on the finest level) a kernel
-// is one or two CTAs (K5 spreads its output modes over up to Bd CTAs per
-// color, below) and a cycle is ~90 (Poisson p5) to ~800 (Stokes
+// What bounds them on the card: at 8x8 (C = 32 on the finest level) one CTA
+// per 32-cell tile would be one CTA per launch, so K5 spreads its output
+// modes over up to Bd CTAs per color and K1 and K6 over the CTAs of a
+// thread-block cluster (below), and a cycle is ~90 (Poisson p5) to ~800 (Stokes
 // W-cycle) launches, so launched eagerly the host's launch rate bounds the
 // cycle; the mixed route therefore replays each cycle as one captured CUDA
 // graph (dgtpu_torch/ops/graphs.py), where launch latency does; at 64x64 p5
@@ -56,10 +57,14 @@
 // pointers the caller allocated, launches on the given stream without
 // synchronising, and returns cudaGetLastError() (or the launch's own error)
 // as an int.  ``accumulate`` selects ``out = base + result`` (base may be
-// null otherwise).
+// null otherwise).  K1 and K6 launch as clusters: sm_90 and a CUDA 12
+// runtime.
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -124,24 +129,6 @@ __device__ __forceinline__ void packed_pos(int j, int i, int nh, int* c, int* q)
     *q = j * nh + ip;
 }
 
-// Stage the five fields a stencil row of ``color`` reads into shared memory:
-// slot 0 the color's own lattice at lane q, slots 1..4 the opposite lattice
-// at the neighbor lanes.  fld is (5, B, TC).
-__device__ __forceinline__ void stage_fields(float* fld, const float* x, int color,
-                                             int B, int C, int q, int tx, int ty,
-                                             int ny, int nh, int periodic) {
-    const size_t BC = (size_t)B * C;
-    const float* own = x + (size_t)color * BC;
-    const float* o = x + (size_t)(1 - color) * BC;
-    for (int b = ty; b < B; b += ny)
-        fld[b * TC + tx] = own[(size_t)b * C + q];
-    for (int s = 0; s < 4; ++s) {
-        const int lane = nbr_lane(q, s, color, C, nh, periodic);
-        for (int b = ty; b < B; b += ny)
-            fld[((s + 1) * B + b) * TC + tx] = o[(size_t)b * C + lane];
-    }
-}
-
 // sum_{s >= s0} sum_b blk[s][b][a] * fld[s][b] for cell q: one output mode
 // of the stencil row.  blk is one color's (5, Bs, Bd, C) of storage type T,
 // read through the read-only path when kLdg.
@@ -162,7 +149,7 @@ __device__ __forceinline__ float stencil_row(const T* __restrict__ blk,
     return acc;
 }
 
-// The red-black half-sweep on one tile of TC cells, shared by K1 and K7:
+// The red-black half-sweep on one tile of TC cells, K7's body (K1 has its own):
 //   out_c[:, q] = (base_c +) Dinv_c (rhs_c - sum_{s=1..4} blk_c[s] nbr_s(o))
 // for the cells q of tile ``tile`` of ``color`` (_soa_smooth body,
 // pallas_soa.py:341-353; StreamedLevel.half_sweeps, pallas_stream.py:283-300).
@@ -214,34 +201,6 @@ __device__ __forceinline__ void half_sweep_tile(
             out_c[i] = base_c ? base_c[i] + acc : acc;
         }
     __syncthreads();
-}
-
-// K1: one red-black half-sweep, float32 blocks:
-//   out[color]   = (base[color] +)   Dinv_c . (rhs_c - sum_{s=1..4} A_c[s] . nbr_s(u[1-color]))
-//   out[1-color] = (base[1-color] +) u[1-color]
-// One CTA per tile of TC cells x blockDim.y output-mode lanes.  ``base``
-// folds the Stokes sweep's uv + du_s into the last half-sweep.
-__global__ void half_sweep_kernel(const float* __restrict__ blocks,
-                                  const float* __restrict__ dinv,
-                                  const float* __restrict__ rhs,
-                                  const float* __restrict__ u,
-                                  const float* __restrict__ base,
-                                  float* __restrict__ out,
-                                  int color, int B, int C, int nh, int periodic,
-                                  int accumulate) {
-    extern __shared__ float fld[];   // (5, B, TC)
-    const size_t BC = (size_t)B * C;
-    const size_t oc = (size_t)(1 - color) * BC;
-    half_sweep_tile<float, false>(blocks, dinv, rhs, u + oc,
-                           accumulate ? base + (size_t)color * BC : nullptr,
-                           out + (size_t)color * BC, fld, blockIdx.x, color, B, C,
-                           nh, periodic);
-    const int q = blockIdx.x * TC + threadIdx.x;
-    if (q >= C) return;
-    for (int a = threadIdx.y; a < B; a += blockDim.y) {
-        const size_t i = oc + (size_t)a * C + q;
-        out[i] = accumulate ? base[i] + u[i] : u[i];
-    }
 }
 
 // K7: n_half red-black half-sweeps (colors 0, 1, 0, 1, ...) in one
@@ -479,21 +438,27 @@ __global__ void geo_transfer_kernel(const float* __restrict__ T4,
 constexpr int K5_MAX_ROWS = 16;   // output modes (thread rows) per CTA at most
 constexpr int K5_MIN_WARPS = 4;   // warps that stage the fields at least
 
-// ``stage_fields`` by asynchronous copies: the (slot, mode) rows spread over
-// the CTA's ny thread rows, one wait at the end.
+// Stage the fields a stencil row of ``color`` reads into shared memory fld
+// (5, B, TC) by asynchronous copies: slot 0 the color's own lattice at lane q
+// (unless ``own`` is false: K1 keeps t there), slots 1..4 the opposite
+// lattice at the neighbor lanes.  The (slot, mode) rows spread over the
+// CTA's ny thread rows, one wait at the end (unless ``wait`` is false: the
+// caller issues more loads first and then calls cp_async_wait_all).
 __device__ __forceinline__ void stage_fields_async(float* fld, const float* __restrict__ x,
                                                    int color, int B, int C, int q, int tx,
-                                                   int ty, int ny, int nh, int periodic) {
+                                                   int ty, int ny, int nh, int periodic,
+                                                   bool own = true, bool wait = true) {
     const size_t BC = (size_t)B * C;
-    const float* own = x + (size_t)color * BC + q;
+    const float* mine = x + (size_t)color * BC + q;
     const float* o = x + (size_t)(1 - color) * BC;
-    for (int b = ty; b < B; b += ny) cp_async4(fld + b * TC + tx, own + (size_t)b * C);
+    if (own)
+        for (int b = ty; b < B; b += ny) cp_async4(fld + b * TC + tx, mine + (size_t)b * C);
     for (int s = 0; s < 4; ++s) {
         const float* src = o + nbr_lane(q, s, color, C, nh, periodic);
         for (int b = ty; b < B; b += ny)
             cp_async4(fld + ((s + 1) * B + b) * TC + tx, src + (size_t)b * C);
     }
-    cp_async_wait_all();
+    if (wait) cp_async_wait_all();
 }
 
 // kBs > 0: Bs known at compile time (the b loop fully unrolled, the slots
@@ -609,57 +574,422 @@ int launch_stencil_apply(const void* blocks, const float* x, const float* base,
     return (int)cudaGetLastError();
 }
 
-// K6: one color of the pressure DG half-pass,
-//   out[color]   = (base[color] +)   DG_Dinv_c (rhs_c - (D_c[0] g_c
-//                      + sum_s D_c[s] nbr_s(g_{1-c}) - DG_diag_c p_c))
-//   out[1-color] = (base[1-color] +) p[1-color]
-// D_c is (5, Bu, Np, C); dgd / dgi are (Np, Np, C) in the M^T layout;
-// g = G p (2, Bu, C) comes from K5.  The CTA stages g's five fields
-// (5 Bu TC floats), then t = rhs - off (Np TC floats), then applies DG_Dinv.
-// ``base`` folds the sweep's p + dp into the last half-pass.
-__global__ void dg_half_sweep_kernel(const float* __restrict__ D,
-                                     const float* __restrict__ dgd,
-                                     const float* __restrict__ dgi,
-                                     const float* __restrict__ rhs,
-                                     const float* __restrict__ g,
-                                     const float* __restrict__ p,
-                                     const float* __restrict__ base,
-                                     float* __restrict__ out,
-                                     int color, int Bu, int Np, int C, int nh,
-                                     int periodic, int accumulate) {
-    extern __shared__ float sm[];
-    float* fld = sm;                 // (5, Bu, TC)
-    float* t = sm + 5 * Bu * TC;     // (Np, TC)
-    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
-    const int q = blockIdx.x * TC + tx;
-    const bool valid = q < C;
-    const size_t PC = (size_t)Np * C;
-    const float* pc = p + (size_t)color * PC;
-    const float* po = p + (size_t)(1 - color) * PC;
-    if (valid)
-        stage_fields(fld, g, color, Bu, C, q, tx, ty, ny, nh, periodic);
-    __syncthreads();
-    if (valid) {
-        for (int a = ty; a < Np; a += ny) {
-            const float dg = stencil_row(D, fld, 0, a, Bu, Np, C, q, tx);
-            float diag = 0.f;
-            for (int b = 0; b < Np; ++b)
-                diag = fmaf(dgd[((size_t)b * Np + a) * C + q], pc[(size_t)b * C + q], diag);
-            t[a * TC + tx] = rhs[(size_t)a * C + q] - (dg - diag);
+// K1 and K6: one red-black half-sweep of one color c,
+//   K1 (_soa_smooth, pallas_soa.py:341-353; the Stokes _bgs_A):
+//     t       = rhs_c - sum_{s=1..4} A_c[s] nbr_s(u[1-c])
+//     out[c]  = (base[c] +) Dinv_c t,        out[1-c] = (base[1-c] +) u[1-c]
+//   K6 (_bgs_dg's half, pallas_stokes.py:382-390; in the streamed hybrid the
+//   whole of matvec_color(D) + the two DG-diagonal MACs,
+//   pallas_stokes_stream.py:109-113), with g = G p from K5:
+//     t       = rhs_c - (D_c[0] g_c + sum_s D_c[s] nbr_s(g_{1-c}) - DG_diag_c p_c)
+//     out[c]  = (base[c] +) DG_Dinv_c t,     out[1-c] = (base[1-c] +) p[1-c]
+// ``base`` folds the Stokes sweep's uv + du (K1) and p + dp (K6) into the
+// last half-sweep.  Blocks are float32, (5, B_src, B_dst, C) per color.
+//
+// What bounds them: each output is a chain of 4 B (K1) or 5 Bu (K6)
+// dependent multiply-adds whose block elements come from device memory or
+// L2, then a chain of B (Np) for the inverse; at 8x8 (C = 32) the bytes are
+// under 1 MB, so latency and loads in flight bound them, and at 64x64 p5
+// (C = 2048, 26 MB per K1 call) the bytes.  One CTA per 32-cell tile (the
+// first cut) ran one CTA at 8x8 with each thread walking several outputs.
+// The second stage needs every mode of t, so the output modes cannot simply
+// go to separate CTAs as in K5; they go to the CTAs of a thread-block
+// cluster, which share t through distributed shared memory:
+//
+//   grid (G, cell tiles), a cluster of G CTAs along x: CTA g of a tile's
+//   cluster owns output modes [g rows, (g + 1) rows), one per thread row,
+//   one output per thread; the warp stays along the 32 cells, so every
+//   block read is one coalesced 128-byte load.
+//   Stage 1: the CTA stages the neighbor fields of its 32 cells by cp.async
+//   (K1: slots 1..4, 4 B TC floats; K6: g's five fields, 5 Bu TC) with all
+//   its warps (at least K5_MIN_WARPS); before waiting on them each thread
+//   issues its chain's block loads through the read-only path (SlotChain:
+//   every slot at once where they fit in 96 registers; at B 36 one slot
+//   ahead inside the chain instead), fetches its rhs and base elements (K6
+//   also its DG_Dinv row and its DG_diag row times p_c, one chain) and
+//   copies its mode of the other color.  After the barrier it runs its
+//   chain, unrolled for the B of the port's levels, and writes t_a into its
+//   CTA's t (K1: in place of slot 0; K6: after the fields).
+//   Exchange (exchange_t): K1's thread issues its Dinv row's loads,
+//   cluster.sync(), then each CTA copies the other CTAs' rows of t into the
+//   same rows of its own t, arrives on the cluster barrier and syncs its
+//   CTA; it waits on that barrier again just before it exits, so no CTA
+//   leaves while a peer still reads its shared memory.
+//   Stage 2: each thread sums its inverse row against t and stores.
+//   Rule (sweep_rule, for ``modes`` = B or Np output modes): tiles =
+//   ceil(C / 32), need = ceil(SMs / tiles) CTAs per tile for one CTA per
+//   SM; rows = max(ceil(modes / most), min(16, max(1, floor(modes /
+//   need)))), G = ceil(modes / rows), then the modes spread evenly, rows =
+//   ceil(modes / G) and G = ceil(modes / rows), so no CTA is empty, a CTA
+//   has at most SWEEP_MAX_ROWS thread rows and G >= need wherever modes >=
+//   need and the cluster limit allow it.  ``most`` is 16 (a non-portable
+//   cluster size, allowed per kernel before its first launch) and is lowered
+//   while cudaOccupancyMaxActiveClusters finds no room for the shape (8 if
+//   the card refuses non-portable sizes).  8x8 p5 finest (B 36, C 32): one
+//   cluster of 12 CTAs of 3 rows; 64x64 p5 (C 2048): 64 clusters of 3 CTAs
+//   of 12 rows; 8x8 Stokes A (B 18): 9 CTAs of 2 rows; K6 at Np 4: clusters
+//   of 4 CTAs of one row; at Np 1 one CTA and no peer to read.
+//
+// The sums keep the first cut's order: stage 1 one fmaf chain from 0 over
+// the slots (K1 1..4, K6 0..4) and b, then rhs - acc (K6: the diagonal chain
+// over b, then rhs - (dg - diag)); stage 2 one chain over b, then base +
+// acc.  So every result is the same bit for bit.
+constexpr int SWEEP_MAX_ROWS = 16;      // output modes (thread rows) per CTA at most
+constexpr int SWEEP_MAX_CLUSTER = 16;   // CTAs per cluster at most (8 is portable)
+
+// One output's chain over slots s = kS0..4 and modes b = 0..Bs-1:
+// sum_s sum_b blk[s][b] * fld[s][b], with ``blk`` at the output's element of
+// slot 0, mode 0, ``step`` elements from mode b to b + 1 and Bs step from
+// slot s to s + 1.  The block loads need no staged field, so a kernel calls
+// issue() before its staging barrier and sum() after it.  kBs > 0: Bs known
+// at compile time and b unrolled; where every slot's loads fit in 96
+// registers (kEarly) issue() puts them all in flight, else sum() keeps one
+// slot ahead, issuing slot s + 1's loads before slot s's multiply-adds
+// (K5's body: at B 36 the early loads would take 100 registers a thread and
+// halve the CTAs an SM holds at 64x64).  kBs == 0: any Bs, the loads in
+// sum(), unrolled by 8.
+template <int kS0, int kBs>
+struct SlotChain {
+    static constexpr int kSlots = 5 - kS0;
+    static constexpr bool kEarly = kBs > 0 && kBs * kSlots <= 96;
+    float v[kEarly ? kSlots : 1][kBs > 0 ? kBs : 1];
+    const float* blk;
+    size_t step;
+    int Bs;
+
+    __device__ __forceinline__ const float* slot(int s) const {
+        return blk + (size_t)s * Bs * step;
+    }
+
+    __device__ __forceinline__ void issue(const float* __restrict__ b, size_t st,
+                                          int Bs_any) {
+        blk = b;
+        step = st;
+        Bs = kBs > 0 ? kBs : Bs_any;
+        if constexpr (kEarly) {
+#pragma unroll
+            for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+                for (int m = 0; m < kBs; ++m) v[k][m] = __ldg(slot(kS0 + k) + m * step);
         }
     }
-    __syncthreads();
-    if (!valid) return;
-    for (int a = ty; a < Np; a += ny) {
+
+    __device__ __forceinline__ float sum(const float* fld, int tx) {
         float acc = 0.f;
-        for (int b = 0; b < Np; ++b)
-            acc = fmaf(dgi[((size_t)b * Np + a) * C + q], t[b * TC + tx], acc);
-        const size_t oc = (size_t)color * PC + (size_t)a * C + q;
-        const size_t oo = (size_t)(1 - color) * PC + (size_t)a * C + q;
-        const float keep = po[(size_t)a * C + q];
-        out[oc] = accumulate ? base[oc] + acc : acc;
-        out[oo] = accumulate ? base[oo] + keep : keep;
+        if constexpr (kEarly) {
+#pragma unroll
+            for (int k = 0; k < kSlots; ++k) {
+                const float* f = fld + (kS0 + k) * kBs * TC + tx;
+#pragma unroll
+                for (int m = 0; m < kBs; ++m) acc = fmaf(v[k][m], f[m * TC], acc);
+            }
+        } else if constexpr (kBs > 0) {
+            float cur[kBs], next[kBs];
+#pragma unroll
+            for (int m = 0; m < kBs; ++m) cur[m] = __ldg(slot(kS0) + m * step);
+#pragma unroll
+            for (int s = kS0; s < 5; ++s) {
+                if (s < 4) {
+#pragma unroll
+                    for (int m = 0; m < kBs; ++m) next[m] = __ldg(slot(s + 1) + m * step);
+                }
+                const float* f = fld + s * kBs * TC + tx;
+#pragma unroll
+                for (int m = 0; m < kBs; ++m) acc = fmaf(cur[m], f[m * TC], acc);
+                if (s < 4) {
+#pragma unroll
+                    for (int m = 0; m < kBs; ++m) cur[m] = next[m];
+                }
+            }
+        } else {
+#pragma unroll 1
+            for (int s = kS0; s < 5; ++s) {
+                const float* A = slot(s);
+                const float* f = fld + s * Bs * TC + tx;
+                int b = 0;
+                for (; b + 8 <= Bs; b += 8) {
+                    float w[8];
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) w[u] = __ldg(A + (b + u) * step);
+#pragma unroll
+                    for (int u = 0; u < 8; ++u) acc = fmaf(w[u], f[(b + u) * TC], acc);
+                }
+                for (; b < Bs; ++b) acc = fmaf(__ldg(A + b * step), f[b * TC], acc);
+            }
+        }
+        return acc;
     }
+};
+
+// The exchange of the note: t (modes, TC) in shared memory holds this CTA's
+// rows; after it, every row.  Every thread of every CTA of the cluster calls
+// it once, and later cluster_exit_wait() once, just before it exits.
+__device__ __forceinline__ void exchange_t(float* t, int modes, int rows) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const unsigned rank = cluster.block_rank();
+    cluster.sync();
+    for (int i = threadIdx.y; i < modes; i += blockDim.y) {
+        const unsigned owner = i / rows;
+        if (owner != rank)
+            t[i * TC + threadIdx.x] =
+                cluster.map_shared_rank(t, owner)[i * TC + threadIdx.x];
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    __syncthreads();
+}
+
+__device__ __forceinline__ void cluster_exit_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// K1 (the note above).  kB > 0: B known at compile time; 0: any B.
+template <int kB>
+__global__ void __launch_bounds__(TC * SWEEP_MAX_ROWS)
+half_sweep_kernel(const float* __restrict__ blocks_c, const float* __restrict__ dinv_c,
+                  const float* __restrict__ rhs_c, const float* __restrict__ u,
+                  const float* __restrict__ base, float* __restrict__ out, int color,
+                  int B_any, int C, int nh, int periodic, int accumulate, int rows) {
+    extern __shared__ float fld[];   // (5, B, TC): slots 1..4 the fields, slot 0 t
+    const int B = kB > 0 ? kB : B_any;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int q = blockIdx.y * TC + tx;
+    const int a = blockIdx.x * rows + ty;
+    const bool valid = q < C;
+    const bool active = valid && ty < rows && a < B;
+    const size_t BC = (size_t)B * C;
+    const size_t i = (size_t)a * C + q;
+    const size_t oc = (size_t)(1 - color) * BC + i, cc = (size_t)color * BC + i;
+    float r0 = 0.f, b0 = 0.f;
+    if (active) {
+        out[oc] = accumulate ? base[oc] + u[oc] : u[oc];
+        r0 = rhs_c[i];
+        if (accumulate) b0 = base[cc];
+    }
+    if (valid)
+        stage_fields_async(fld, u, color, B, C, q, tx, ty, blockDim.y, nh, periodic, false,
+                           false);
+    SlotChain<1, kB> chain;
+    if (active) chain.issue(blocks_c + i, BC, B);
+    cp_async_wait_all();
+    __syncthreads();
+    if (active) fld[a * TC + tx] = r0 - chain.sum(fld, tx);
+    float d[kB > 0 ? kB : 1];
+    if constexpr (kB > 0) {
+        if (active) {
+#pragma unroll
+            for (int b = 0; b < kB; ++b) d[b] = __ldg(dinv_c + (size_t)b * BC + i);
+        }
+    }
+    exchange_t(fld, B, rows);
+    if (active) {
+        float acc = 0.f;
+        if constexpr (kB > 0) {
+#pragma unroll
+            for (int b = 0; b < kB; ++b) acc = fmaf(d[b], fld[b * TC + tx], acc);
+        } else {
+            for (int b = 0; b < B; ++b)
+                acc = fmaf(__ldg(dinv_c + (size_t)b * BC + i), fld[b * TC + tx], acc);
+        }
+        out[cc] = accumulate ? b0 + acc : acc;
+    }
+    cluster_exit_wait();
+}
+
+// K6 (the note above).  D_c is (5, Bu, Np, C); dgd / dgi are (Np, Np, C) in
+// the M^T layout.  kBu, kNp > 0: known at compile time; 0: any.
+template <int kBu, int kNp>
+__global__ void __launch_bounds__(TC * SWEEP_MAX_ROWS)
+dg_half_sweep_kernel(const float* __restrict__ D_c, const float* __restrict__ dgd_c,
+                     const float* __restrict__ dgi_c, const float* __restrict__ rhs_c,
+                     const float* __restrict__ g, const float* __restrict__ p,
+                     const float* __restrict__ base, float* __restrict__ out, int color,
+                     int Bu_any, int Np_any, int C, int nh, int periodic, int accumulate,
+                     int rows) {
+    extern __shared__ float sm[];
+    const int Bu = kBu > 0 ? kBu : Bu_any;
+    const int Np = kNp > 0 ? kNp : Np_any;
+    float* fld = sm;                 // (5, Bu, TC)
+    float* t = sm + 5 * Bu * TC;     // (Np, TC)
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int q = blockIdx.y * TC + tx;
+    const int a = blockIdx.x * rows + ty;
+    const bool valid = q < C;
+    const bool active = valid && ty < rows && a < Np;
+    const size_t PC = (size_t)Np * C;
+    const size_t i = (size_t)a * C + q;
+    const size_t oc = (size_t)(1 - color) * PC + i, cc = (size_t)color * PC + i;
+    const float* pc = p + (size_t)color * PC;
+    if (valid)
+        stage_fields_async(fld, g, color, Bu, C, q, tx, ty, blockDim.y, nh, periodic, true,
+                           false);
+    SlotChain<0, kBu> chain;
+    float d[kNp > 0 ? kNp : 1];
+    float r0 = 0.f, b0 = 0.f, diag = 0.f;
+    if (active) {
+        chain.issue(D_c + i, PC, Bu);
+        if constexpr (kNp > 0) {
+#pragma unroll
+            for (int b = 0; b < kNp; ++b) d[b] = __ldg(dgi_c + (size_t)b * PC + i);
+        }
+        out[oc] = accumulate ? base[oc] + p[oc] : p[oc];
+        r0 = rhs_c[i];
+        if (accumulate) b0 = base[cc];
+        for (int b = 0; b < Np; ++b)
+            diag = fmaf(dgd_c[(size_t)b * PC + i], pc[(size_t)b * C + q], diag);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (active) t[a * TC + tx] = r0 - (chain.sum(fld, tx) - diag);
+    exchange_t(t, Np, rows);
+    if (active) {
+        float acc = 0.f;
+        if constexpr (kNp > 0) {
+#pragma unroll
+            for (int b = 0; b < kNp; ++b) acc = fmaf(d[b], t[b * TC + tx], acc);
+        } else {
+            for (int b = 0; b < Np; ++b)
+                acc = fmaf(__ldg(dgi_c + (size_t)b * PC + i), t[b * TC + tx], acc);
+        }
+        out[cc] = accumulate ? b0 + acc : acc;
+    }
+    cluster_exit_wait();
+}
+
+// The bodies of the port's levels: K1 at B 36/16/9/4 (Poisson p5/p3/p2/p1)
+// and 18/8 (Stokes momentum), K6 at (Bu, Np) = (18, 4) and (8, 1).
+using HalfSweepBody = decltype(&half_sweep_kernel<0>);
+using DgHalfSweepBody = decltype(&dg_half_sweep_kernel<0, 0>);
+
+HalfSweepBody half_sweep_body(int B) {
+    switch (B) {
+        case 36: return half_sweep_kernel<36>;
+        case 18: return half_sweep_kernel<18>;
+        case 16: return half_sweep_kernel<16>;
+        case 9: return half_sweep_kernel<9>;
+        case 8: return half_sweep_kernel<8>;
+        case 4: return half_sweep_kernel<4>;
+        default: return half_sweep_kernel<0>;
+    }
+}
+
+DgHalfSweepBody dg_half_sweep_body(int Bu, int Np) {
+    if (Bu == 18 && Np == 4) return dg_half_sweep_kernel<18, 4>;
+    if (Bu == 8 && Np == 1) return dg_half_sweep_kernel<8, 1>;
+    return dg_half_sweep_kernel<0, 0>;
+}
+
+// The launch geometry of the note: grid (size, tiles), clusters of ``size``
+// CTAs of (TC, warps) threads, ``rows`` output modes per CTA.
+struct SweepGrid {
+    int tiles, size, rows, warps;
+};
+
+SweepGrid sweep_rule(int modes, int C, int sms, int most) {
+    SweepGrid g;
+    g.tiles = (C + TC - 1) / TC;
+    const int need = (sms + g.tiles - 1) / g.tiles;
+    const int rows = std::max((modes + most - 1) / most,
+                              std::min(SWEEP_MAX_ROWS, std::max(1, modes / need)));
+    const int size = (modes + rows - 1) / rows;
+    g.rows = (modes + size - 1) / size;
+    g.size = (modes + g.rows - 1) / g.rows;
+    g.warps = std::max(g.rows, K5_MIN_WARPS);
+    return g;
+}
+
+// A cluster launch of one grid; holds the attribute the configuration
+// points at.
+struct ClusterLaunch {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr = {};
+    ClusterLaunch(const SweepGrid& g, size_t smem, cudaStream_t stream) {
+        cfg.gridDim = dim3(g.size, g.tiles);
+        cfg.blockDim = dim3(TC, g.warps);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = stream;
+        attr.id = cudaLaunchAttributeClusterDimension;
+        attr.val.clusterDim.x = g.size;
+        attr.val.clusterDim.y = 1;
+        attr.val.clusterDim.z = 1;
+        cfg.attrs = &attr;
+        cfg.numAttrs = 1;
+    }
+    ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// The grid of ``kernel`` for ``modes`` output modes over C cells with
+// ``smem`` bytes of shared memory per CTA: the rule with the largest cluster
+// the card can hold.  Found once per (kernel, modes, C, smem) and kept for
+// the process, so only a first launch queries the card (the routes make it
+// eagerly, before any CUDA graph capture).
+template <typename Kernel>
+cudaError_t sweep_grid(Kernel kernel, int modes, int C, size_t smem, SweepGrid* out) {
+    static std::mutex mu;
+    static std::map<std::tuple<const void*, int, int, size_t>, SweepGrid> found;
+    const std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple((const void*)kernel, modes, C, smem);
+    const auto it = found.find(key);
+    if (it != found.end()) {
+        *out = it->second;
+        return cudaSuccess;
+    }
+    const int sms = sm_count();
+    if (sms == 0) return cudaErrorNoDevice;
+    if (modes < 1 || C < 1) return cudaErrorInvalidValue;
+    int most = SWEEP_MAX_CLUSTER;
+    if (cudaFuncSetAttribute((const void*)kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1) != cudaSuccess) {
+        cudaGetLastError();
+        most = 8;
+    }
+    cudaError_t refused = cudaErrorInvalidConfiguration;
+    for (;;) {
+        const SweepGrid g = sweep_rule(modes, C, sms, most);
+        const ClusterLaunch l(g, smem, nullptr);
+        int clusters = 0;
+        const cudaError_t e =
+            cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &l.cfg);
+        if (e == cudaSuccess && clusters > 0) {
+            found.emplace(key, g);
+            *out = g;
+            return cudaSuccess;
+        }
+        if (e != cudaSuccess) {   // a cluster size the card refuses: try a smaller one
+            cudaGetLastError();
+            refused = e;
+        }
+        most = g.size - 1;
+        if (most < 1 || (modes + most - 1) / most > SWEEP_MAX_ROWS)
+            return refused;       // no smaller cluster to take
+    }
+}
+
+template <typename Kernel, typename... Args>
+int launch_sweep(Kernel kernel, int modes, int C, size_t smem, cudaStream_t stream,
+                 Args... args) {
+    SweepGrid g;
+    cudaError_t e = sweep_grid(kernel, modes, C, smem, &g);
+    if (e != cudaSuccess) return (int)e;
+    const ClusterLaunch l(g, smem, stream);
+    e = cudaLaunchKernelEx(&l.cfg, kernel, args..., g.rows);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+size_t half_sweep_smem(int B) { return (size_t)5 * B * TC * sizeof(float); }
+size_t dg_half_sweep_smem(int Bu, int Np) {
+    return (size_t)(5 * Bu + Np) * TC * sizeof(float);
+}
+
+// {cell tiles, cluster size, rows per CTA, threads per CTA} of a grid
+int grid_dims(cudaError_t e, const SweepGrid& g, int* dims) {
+    if (e == cudaSuccess) {
+        dims[0] = g.tiles;
+        dims[1] = g.size;
+        dims[2] = g.rows;
+        dims[3] = TC * g.warps;
+    }
+    return (int)e;
 }
 
 inline int mode_lanes(int B) { return B < 8 ? B : 8; }
@@ -709,13 +1039,15 @@ extern "C" {
 int soa_half_sweep(const float* blocks_c, const float* dinv_c, const float* rhs_c,
                    const float* u, const float* base, float* out, int color, int B,
                    int C, int nh, int periodic, int accumulate, cudaStream_t stream) {
-    dim3 block(TC, mode_lanes(B));
-    dim3 grid((C + TC - 1) / TC);
-    size_t smem = (size_t)5 * B * TC * sizeof(float);
-    half_sweep_kernel<<<grid, block, smem, stream>>>(blocks_c, dinv_c, rhs_c, u, base,
-                                                     out, color, B, C, nh, periodic,
-                                                     accumulate);
-    return (int)cudaGetLastError();
+    return launch_sweep(half_sweep_body(B), B, C, half_sweep_smem(B), stream, blocks_c,
+                        dinv_c, rhs_c, u, base, out, color, B, C, nh, periodic, accumulate);
+}
+
+// K1's launch geometry for B output modes over C cells per color: dims =
+// {cell tiles, cluster size, rows per CTA, threads per CTA}.
+int soa_half_sweep_grid(int B, int C, int* dims) {
+    SweepGrid g;
+    return grid_dims(sweep_grid(half_sweep_body(B), B, C, half_sweep_smem(B), &g), g, dims);
 }
 
 int soa_multi_half_sweep(const void* blocks, const void* dinv, long long blk_cs,
@@ -792,13 +1124,18 @@ int soa_dg_half_sweep(const float* D_c, const float* dgd_c, const float* dgi_c,
                       const float* rhs_c, const float* g, const float* p,
                       const float* base, float* out, int color, int Bu, int Np, int C,
                       int nh, int periodic, int accumulate, cudaStream_t stream) {
-    dim3 block(TC, mode_lanes(Np));
-    dim3 grid((C + TC - 1) / TC);
-    size_t smem = (size_t)(5 * Bu + Np) * TC * sizeof(float);
-    dg_half_sweep_kernel<<<grid, block, smem, stream>>>(D_c, dgd_c, dgi_c, rhs_c, g, p,
-                                                        base, out, color, Bu, Np, C, nh,
-                                                        periodic, accumulate);
-    return (int)cudaGetLastError();
+    return launch_sweep(dg_half_sweep_body(Bu, Np), Np, C, dg_half_sweep_smem(Bu, Np),
+                        stream, D_c, dgd_c, dgi_c, rhs_c, g, p, base, out, color, Bu, Np,
+                        C, nh, periodic, accumulate);
+}
+
+// K6's launch geometry for Np output modes (Bu staged) over C cells per
+// color: dims as soa_half_sweep_grid's.
+int soa_dg_half_sweep_grid(int Bu, int Np, int C, int* dims) {
+    SweepGrid g;
+    return grid_dims(sweep_grid(dg_half_sweep_body(Bu, Np), Np, C,
+                                dg_half_sweep_smem(Bu, Np), &g),
+                     g, dims);
 }
 
 const char* soa_error_string(int code) {

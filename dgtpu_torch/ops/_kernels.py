@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -38,6 +39,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # entry point -> argument types (a launcher's last one is the stream)
 _SIGNATURES = {
     "soa_half_sweep": [_P] * 6 + [_I] * 6 + [_P],
+    "soa_half_sweep_grid": [_I, _I, ctypes.POINTER(_I)],
     "soa_multi_half_sweep": [_P] * 2 + [_L] * 2 + [_P] * 4 + [_I] * 7 + [_P],
     "soa_multi_half_sweep_ctas": [_I, _I, ctypes.POINTER(_I)],
     "soa_small_gemm": [_P] * 4 + [_I] * 5 + [_P],
@@ -45,6 +47,7 @@ _SIGNATURES = {
     "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
     "soa_stencil_apply_grid": [_I, _I, ctypes.POINTER(_I)],
     "soa_dg_half_sweep": [_P] * 8 + [_I] * 7 + [_P],
+    "soa_dg_half_sweep_grid": [_I, _I, _I, ctypes.POINTER(_I)],
 }
 _ROLLED_SIGNATURES = {
     "rolled_half_sweep": [_P] * 6 + [_I] * 5 + [_P],
@@ -52,9 +55,10 @@ _ROLLED_SIGNATURES = {
     "rolled_transfer": [_P] * 4 + [_I] * 6 + [_P],
     "rolled_dense_apply": [_P] * 3 + [_I, _P],
 }
-# K1/K5/K7 stage 5*B*TC floats of shared memory per CTA (TC = 32 cells), K6
-# (5*Bu + Np)*TC; the launches stay under the 48 KB a kernel gets without an
-# opt-in attribute.
+# Shared memory per CTA (TC = 32 cells): K5 and K7 stage 5*B*TC floats; K1
+# 4*B*TC of neighbor fields and B*TC of t = rhs - off, which the cluster's
+# CTAs complete in place, so 5*B*TC too; K6 (5*Bu + Np)*TC.  The launches
+# stay under the 48 KB a kernel gets without an opt-in attribute.
 _TC = 32
 _SMEM_FLOATS = 48 * 1024 // 4
 _MAX_SMEM_B = _SMEM_FLOATS // (5 * _TC)
@@ -85,7 +89,9 @@ def build(source=SOURCE):
     lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(lib):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
+        # one name per thread: build_all may build two copies of one source
+        # (an earlier tree's unchanged file) into the same library at once
+        tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -250,16 +256,33 @@ def stencil_apply(blocks, x, nh, periodic, base=None, sign=1.0):
     return out
 
 
+def _grid(name, *shape):
+    dims = (ctypes.c_int * 4)()
+    code = getattr(library(), name)(*(int(n) for n in shape), dims)
+    if code != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {code} "
+                           f"({library().soa_error_string(code).decode()})")
+    return tuple(dims)
+
+
 def stencil_apply_grid(Bd, C):
     """K5's launch geometry for Bd output modes over C cells per color:
     (grid x, grid y, grid z, threads per CTA), as the launcher picks it on
     this card."""
-    dims = (ctypes.c_int * 4)()
-    code = library().soa_stencil_apply_grid(int(Bd), int(C), dims)
-    if code != 0:
-        raise RuntimeError(f"soa_stencil_apply_grid failed: CUDA error {code} "
-                           f"({library().soa_error_string(code).decode()})")
-    return tuple(dims)
+    return _grid("soa_stencil_apply_grid", Bd, C)
+
+
+def half_sweep_grid(B, C):
+    """K1's launch geometry for B output modes over C cells per color:
+    (cell tiles, CTAs per cluster, output modes per CTA, threads per CTA),
+    as the launcher picks it on this card (the rule in soa_kernels.cu)."""
+    return _grid("soa_half_sweep_grid", B, C)
+
+
+def dg_half_sweep_grid(Np, C, Bu=18):
+    """K6's launch geometry for Np output modes over C cells per color with
+    Bu velocity modes staged, as ``half_sweep_grid``'s."""
+    return _grid("soa_dg_half_sweep_grid", Bu, Np, C)
 
 
 def dg_half_sweep(D, DG_diag, DG_Dinv, rhs, p, g, color, nh, periodic, base=None):

@@ -127,21 +127,82 @@ def _close(kern, args, kwargs=None):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-LEVEL_SHAPES = [(4, 4, 4), (16, 8, 8), (36, 8, 8), (9, 16, 32), (4, 2, 2)]
+# (B, Nj, Ni): K1's blocks on the main paths (Poisson p5/p3/p2/p1 B 36, 16,
+# 9, 4; the Stokes momentum blocks B 18 and 8) at C = 2, 8, 32, 256, 512 and
+# 2048 cells per color (the 8x8, 32x32 and 64x64 hierarchies), C = 30 and 72
+# (not multiples of 32), C = 8192 (clusters of one CTA) and B = 5 (the body
+# for any B)
+LEVEL_SHAPES = [(4, 4, 4), (16, 8, 8), (36, 8, 8), (9, 16, 32), (4, 2, 2),
+                (18, 8, 8), (8, 8, 8), (18, 2, 2), (8, 4, 4), (36, 32, 32),
+                (18, 32, 32), (36, 64, 64), (16, 64, 64), (4, 64, 64), (36, 6, 10),
+                (18, 12, 12), (16, 128, 128), (4, 128, 128), (5, 6, 10)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("B, nj, ni", LEVEL_SHAPES)
 def test_half_sweep_and_residual_kernels(cuda, B, nj, ni, periodic):
+    """K1 on both colors, with and without a base, at whatever cluster its
+    launcher picks for (B, C); two launches give the same bits.  K5 as the
+    residual."""
     rng = np.random.default_rng(0)
     lv = _level(rng, B, nj, ni, periodic, cuda)
     rhs, u = (_rand(rng, 2, B, nj * ni // 2, device=cuda) for _ in range(2))
     for color in (0, 1):
         assert _close(soa.half_sweep, (lv, rhs, u, color)) < REL_TOL
         assert _close(soa.half_sweep, (lv, rhs, u, color, rhs)) < REL_TOL
+        assert _bitwise_stable(soa.half_sweep, (lv, rhs, u, color, rhs))
     # the residual rhs - A u
     assert _close(soa.stencil_apply, (lv, lv.blocks, u, rhs, -1.0)) < REL_TOL
+
+
+@pytest.mark.cuda
+def test_half_sweep_shapes_cover_every_cluster_size(cuda):
+    """LEVEL_SHAPES reach clusters of one CTA, portable ones (2-8 CTAs) and
+    non-portable ones (more than 8), and STOKES_SHAPES clusters of 1 and 4
+    CTAs for K6."""
+    k1 = {_kernels.half_sweep_grid(B, nj * ni // 2)[1] for B, nj, ni in LEVEL_SHAPES}
+    k6 = {_kernels.dg_half_sweep_grid(Np, nj * ni // 2, Bu)[1]
+          for Bu, Np, nj, ni in STOKES_SHAPES}
+    assert 1 in k1 and any(1 < n <= 8 for n in k1) and max(k1) > 8, k1
+    assert {1, 4} <= k6, k6
+
+
+def _check_sweep_grid(modes, C, grid):
+    """The cluster rule's invariants (soa_kernels.cu, the K1/K6 note): 32-cell
+    tiles, clusters of at most 16 CTAs, the modes spread evenly with no empty
+    CTA, one output per thread (a thread row of 32 lanes per mode, at most 16
+    rows, at least 4 warps to stage), and at least one CTA per SM wherever the
+    modes and a portable cluster (8 CTAs) allow it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles, size, rows, threads = grid
+    assert tiles == -(-C // 32)
+    assert 1 <= size <= 16 and 1 <= rows <= 16
+    assert rows == -(-modes // size) and size == -(-modes // rows)
+    assert size * rows >= modes > (size - 1) * rows
+    assert threads == 32 * max(rows, 4)
+    portable = -(-modes // -(-modes // min(8, modes)))
+    assert tiles * size >= min(sms, tiles * portable)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, C", [(36, 32), (16, 32), (4, 32), (9, 32), (4, 8), (18, 32),
+                                  (8, 32), (18, 2), (8, 2), (9, 256), (36, 512), (18, 512),
+                                  (36, 2048), (16, 2048), (4, 2048), (36, 8192), (4, 8192),
+                                  (18, 300), (5, 1000), (36, 30), (36, 1)])
+def test_half_sweep_grid(cuda, B, C):
+    """K1's launch geometry as its launcher picks it on the card."""
+    _check_sweep_grid(B, C, _kernels.half_sweep_grid(B, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bu, Np, C", [(18, 4, 32), (8, 1, 32), (18, 4, 2), (8, 1, 2),
+                                       (18, 4, 128), (18, 4, 512), (8, 1, 512),
+                                       (36, 4, 2048), (18, 4, 30), (18, 4, 8192),
+                                       (12, 3, 40)])
+def test_dg_half_sweep_grid(cuda, Bu, Np, C):
+    """K6's launch geometry as its launcher picks it on the card."""
+    _check_sweep_grid(Np, C, _kernels.dg_half_sweep_grid(Np, C, Bu))
 
 
 @pytest.mark.cuda
@@ -224,11 +285,12 @@ def _stokes_level(rng, Bu, Np, nj, ni, periodic, device):
 
 
 # (2Nu, Np, Nj, Ni): the p2/p1 and p1/p0 levels of the Stokes hierarchies
-# (C = 2, 8, 32 and 512 cells per color), a p5 block on the 8x8 and 64x64
+# (C = 2, 8, 32, 128 and 512 cells per color), a p5 block on the 8x8 and 64x64
 # grids, and C = 30 and 72, not multiples of 32
 STOKES_SHAPES = [(18, 4, 4, 4), (8, 1, 8, 8), (18, 4, 32, 32), (8, 1, 2, 2),
                  (18, 4, 2, 2), (18, 4, 8, 8), (8, 1, 4, 4), (8, 1, 32, 32),
-                 (36, 4, 8, 8), (36, 4, 64, 64), (18, 4, 6, 10), (8, 1, 12, 12)]
+                 (36, 4, 8, 8), (36, 4, 64, 64), (18, 4, 6, 10), (8, 1, 12, 12),
+                 (18, 4, 16, 16)]
 
 
 def _bitwise_stable(kern, args):
@@ -245,7 +307,8 @@ def test_stencil_apply_and_dg_half_sweep_kernels(cuda, Bu, Np, nj, ni, periodic)
     """K5 on the three Stokes stencils (A: Bu -> Bu, G: Np -> Bu, D: Bu ->
     Np) with float32 and bfloat16 blocks, as a matvec and with a base and
     sign -1, whatever grid K5's launcher picks for (Bd, C); K6 on both
-    colors."""
+    colors, whatever cluster its launcher picks for (Np, C).  Two launches
+    give the same bits."""
     rng = np.random.default_rng(0)
     lv = _stokes_level(rng, Bu, Np, nj, ni, periodic, cuda)
     C = nj * ni // 2
@@ -261,6 +324,7 @@ def test_stencil_apply_and_dg_half_sweep_kernels(cuda, Bu, Np, nj, ni, periodic)
     for color in (0, 1):
         assert _close(ss.dg_half_sweep, (lv, rhs, p, g, color)) < REL_TOL
         assert _close(ss.dg_half_sweep, (lv, rhs, p, g, color, rhs)) < REL_TOL
+        assert _bitwise_stable(ss.dg_half_sweep, (lv, rhs, p, g, color, rhs))
 
 
 @pytest.mark.cuda
