@@ -10,10 +10,12 @@ port builds, runs its CUDA kernels and solves on the card.
 example ``git archive <commit> dgtpu_torch/csrc | tar -x -C DIR``): its
 ``dgtpu_torch/csrc`` sources are built beside this tree's, and wherever a
 phase times a graphed cycle (7, 12, 16, 21), K1 (7, 12), K5 (12, 16), K6
-(12, 16), K7 (16) or R3 (21) it also times the earlier tree's kernels on
-the same inputs, in turns with this tree's (earlier, this, this, earlier),
-and prints whether the two agree bit for bit (K1, K5, K6, K7 and the SoA,
-Stokes and hybrid cycles must).
+(12, 16), K7 (16: float32 and bfloat16, eagerly and in a graph), R1 or R3
+(21) it also times the earlier tree's kernels on the same inputs, in turns
+with this tree's (earlier, this, this, earlier), and prints whether the two
+agree bit for bit (K1, K5, K6, K7, R1 and the SoA, Stokes and hybrid cycles
+must).  An earlier K7 that counts its grid in CTAs gets its own default
+grid (``kernels_of``).
 
 Phases (each prints one line; any failure raises, so the exit code is not 0):
   1. the card (name and power limit from nvidia-smi);
@@ -61,7 +63,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
  13. the streamed kernels against their plain versions: K7 (float32 and
      bfloat16 blocks) and K5 with bfloat16 blocks at the 64x64 p=5 finest
      shapes, K6 (the streamed DG pass) and K5 at the 32x32 Stokes finest
-     shapes, K7 on a synthetic O-grid, K7 grids of 1 and 64 CTAs;
+     shapes, K7 on a synthetic O-grid; K7 on its default grid (one cluster
+     per cell tile, which must fit the card at 64x64), on one cluster
+     (striding over the tiles) and on the most clusters the card holds;
  14. the 64x64 route with ``performance.block storage: bfloat16``;
  15. the 32x32 Stokes route through the streamed Stokes hybrid (budget: the
      SoA bytes of all levels but the two finest), FMG seed, plain and
@@ -70,9 +74,10 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      and bfloat16 storage, the 32x32 Stokes W-cycle and matvec); marginal
      cycle times and launches per cycle, SoA cycle against the hybrids,
      eager and graphed in turns, and per-call times of K7 and K5 with
-     bfloat16 blocks beside their plain versions (K5's float32 and
-     bfloat16 residuals and K6's streamed DG pass also in a graph, with
-     their grids);
+     bfloat16 blocks beside their plain versions (K7 with float32 and
+     bfloat16 blocks, K5's float32 and bfloat16 residuals and K6's streamed
+     DG pass also in a graph, with their grids; K7 beside its streaming
+     floor);
  17. the rolled cycle's kernels (R1 half-sweep, R2 stencil apply, R3
      transfer, R4 dense apply) against their plain versions at every shape
      of the 8x8 p=5 hierarchy with geometric factors 8,4,2 (B 36, 16, 4;
@@ -92,15 +97,16 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
  21. marginal rolled cycle times (eager and graphed in turns) and launches
      per cycle at 8x8 and 64x64 beside the SoA cycle's, per-call times of
      R1-R4 beside their plain versions and bounds, each call first held to
-     its plain version (R3's per-cell P e + u, geometric restriction and
-     prolongation also in a graph), and R4 four ways beside torch.mv.
-Then the launch geometries at which K1 and K6 were held to their plain
+     its plain version (R1 at the finest level and at the B 16 and 4
+     levels, R3's per-cell P e + u, geometric restriction and prolongation
+     also in a graph), and R4 four ways beside torch.mv.
+Then the launch geometries at which K1, K6 and K7 were held to their plain
 versions (a timed case at any other raises).  The last lines are the
 kernels' JSON record (per kernel: launches on the main paths, worst error
 against the plain version, its time eagerly and in a graph of 200
 launches, the plain version's, the bound from bytes and operations, a
-PyTorch call's time both ways where one computes the same function, and
-K1's, K5's and K6's launch grid), the nvidia-smi line and
+PyTorch call's time both ways where one computes the same function,
+K1's, K5's, K6's and K7's launch grid), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA or without
 the rest of the repository.
 
@@ -305,15 +311,40 @@ def four_ways(label, kern, args, library, card):
 @contextlib.contextmanager
 def kernels_of(libs):
     """Inside the block the kernel wrappers launch from ``libs`` (soa,
-    rolled), the earlier tree's libraries; None leaves this tree's."""
+    rolled), the earlier tree's libraries; None leaves this tree's.  A
+    library from before K7's grid was counted in clusters (it has no
+    ``soa_multi_half_sweep_grid``) gets its own default grid, one CTA per
+    32-cell tile, at most the co-resident count."""
     from dgtpu_torch.ops import _kernels
-    saved = _kernels.library, _kernels.rolled_library
+    saved = _kernels.library, _kernels.rolled_library, _kernels.multi_half_sweep
     if libs is not None:
         _kernels.library, _kernels.rolled_library = (lambda: libs[0]), (lambda: libs[1])
+        if not hasattr(libs[0], "soa_multi_half_sweep_grid"):
+            _kernels.multi_half_sweep = cta_grid_k7(libs[0], saved[2])
     try:
         yield
     finally:
-        _kernels.library, _kernels.rolled_library = saved
+        _kernels.library, _kernels.rolled_library, _kernels.multi_half_sweep = saved
+
+
+def cta_grid_k7(lib, launch):
+    """``launch`` (this tree's K7 launcher) with the grid an earlier K7
+    counted in CTAs: min(tiles, the co-resident CTAs) from ``lib``."""
+    import ctypes
+    ctas = lib.soa_multi_half_sweep_ctas
+    ctas.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    ctas.restype = ctypes.c_int
+
+    def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
+                         clusters=None):
+        import torch
+        B, C = blocks.shape[2], blocks.shape[4]
+        n = ctypes.c_int()
+        if ctas(B, int(blocks.dtype == torch.bfloat16), ctypes.byref(n)) != 0:
+            raise RuntimeError("the earlier tree's soa_multi_half_sweep_ctas failed")
+        return launch(blocks, Dinv, rhs, u, n_half, nh, periodic, base,
+                      clusters or min(-(-C // 32), n.value))
+    return multi_half_sweep
 
 
 def parent_turns(label, fn, time_fn, card, bitwise):
@@ -420,30 +451,38 @@ def check_graph(label, fn, n, n_in, rng):
           f"{graph.capture_seconds * 1e3:.1f} ms", flush=True)
 
 
-def sweep_grid(kern, args):
-    """(cell tiles, CTAs per cluster, output modes per CTA, threads per CTA)
-    that the launcher of K1 or K6 picks for ``args``."""
-    from dgtpu_torch.ops import _kernels, soa
+def sweep_grid(kern, args, kw=None):
+    """(cell tiles or clusters, CTAs per cluster, output modes per CTA,
+    threads per CTA) that the launcher of K1, K6 or K7 picks for ``args``
+    (K7: with the keyword ``clusters`` in ``kw``, that many)."""
+    from dgtpu_torch.ops import _kernels, soa, stream
     from dgtpu_torch.ops import stokes_stream as sst
     if kern is soa.half_sweep:
         B, C = args[1].shape[1:]
         return _kernels.half_sweep_grid(B, C)
+    if kern is stream.multi_half_sweep:
+        import torch
+        blocks = args[1]
+        grid = _kernels.multi_half_sweep_grid(blocks.shape[2], blocks.shape[4],
+                                              blocks.dtype == torch.bfloat16)
+        clusters = (kw or {}).get("clusters")
+        return grid if clusters is None else (clusters, *grid[1:])
     lv = args[0].lv if kern is sst.dg_pass else args[0]
     _, _, Bu, Np, C = lv.D.shape
     return _kernels.dg_half_sweep_grid(Np, C, Bu)
 
 
-def grid_record(kern, args):
-    """The launch geometry of K1, K5 or K6 at ``args`` as its launcher picks
-    it (a dict for the records), else None."""
+def grid_record(kern, args, kw=None):
+    """The launch geometry of K1, K5, K6 or K7 at ``args`` as its launcher
+    picks it (a dict for the records), else None."""
     from dgtpu_torch.ops import _kernels, soa
-    from dgtpu_torch.ops import stokes_soa as ss
     if kern is soa.stencil_apply:
         blk = args[1]
         *grid, threads = _kernels.stencil_apply_grid(blk.shape[3], blk.shape[4])
         return {"grid": grid, "threads": threads}
-    if launched(kern) in (soa.half_sweep, ss.dg_half_sweep):
-        return dict(zip(("tiles", "cluster", "rows", "threads"), sweep_grid(kern, args)))
+    if launched(kern) in cluster_kernels():
+        return dict(zip(("tiles", "cluster", "rows", "threads"),
+                        sweep_grid(kern, args, kw)))
     return None
 
 
@@ -456,36 +495,45 @@ def grid_text(g):
             f"modes, {g['threads']} threads each")
 
 
-def kernel_times(label, kern, args, card):
-    """K1, K5 or K6 at ``args`` eagerly and in a graph beside its bound, with
-    the grid its launcher picks (and with ``--parent`` the earlier tree's
-    kernel both ways in turns, held to this tree's bit for bit); prints
-    them.  Raises if check_kernels held K1 or K6 at no such grid."""
-    from dgtpu_torch.ops import soa
+def kernel_times(label, kern, args, card, n_graph=200):
+    """K1, K5, K6 or K7 at ``args`` eagerly and in a graph of ``n_graph``
+    calls beside its bound (K7: and its streaming floor), with the grid its
+    launcher picks (and with ``--parent`` the earlier tree's kernel both ways
+    in turns, held to this tree's bit for bit); prints them.  Raises if
+    check_kernels held a cluster kernel at no such grid."""
+    from dgtpu_torch.ops import soa, stream
     from dgtpu_torch.ops import stokes_stream as sst
+    floor = ""
     if kern is soa.stencil_apply:
         blk = args[1]
         shape = (f"{blk.shape[2]} -> {blk.shape[3]} modes, C {blk.shape[4]}, "
                  f"{str(blk.dtype)[6:]} blocks")
     elif kern is soa.half_sweep:
         shape = f"B {args[1].shape[1]}, C {args[1].shape[2]}"
+    elif kern is stream.multi_half_sweep:
+        blk = args[1]
+        shape = (f"B {blk.shape[2]}, C {blk.shape[4]}, {args[5]} half-sweeps, "
+                 f"{str(blk.dtype)[6:]} blocks")
+        size = stream_floor(args)
+        floor = (f", streaming floor {size / HBM_BYTES_PER_S * 1e3:.6f} ms "
+                 f"({size / 1e6:.3f} MB)")
     else:
         lv = args[0].lv if kern is sst.dg_pass else args[0]
         shape = f"Bu {lv.D.shape[2]} -> Np {lv.D.shape[3]}, C {lv.D.shape[4]}"
     label = f"{label} ({shape})"
     run = lambda: kern(*args)                   # noqa: E731
     ms = cuda_ms(run, 200)
-    g_ms = graph_ms(run)
+    g_ms = graph_ms(run, n_graph)
     b_ms, b_by = bound(kern, args)
     grid = grid_record(kern, args)
     print(f"{label}: kernel {ms:.5f} ms eager, {g_ms:.5f} ms in a graph, bound "
-          f"{b_ms:.6f} ms ({b_by}); {grid_text(grid)} ({card})", flush=True)
+          f"{b_ms:.6f} ms ({b_by}){floor}; {grid_text(grid)} ({card})", flush=True)
     if launched(kern) in cluster_kernels() and tuple(grid.values()) \
             not in CHECKED_GRIDS.get(launched(kern), ()):
         raise AssertionError(f"{label}: timed at a launch geometry that no check held "
                              "to the plain version")
     parent_turns(f"{label} eager", run, lambda: cuda_ms(run, 200), card, True)
-    parent_turns(f"{label} in a graph", run, lambda: graph_ms(run), card, True)
+    parent_turns(f"{label} in a graph", run, lambda: graph_ms(run, n_graph), card, True)
 
 
 def solve_text(dg):
@@ -606,16 +654,16 @@ def launched(kern):
     return ss.dg_half_sweep if kern is sst.dg_pass else kern
 
 
-# {K1 or K6: the launch geometries (tiles, cluster, rows, threads) that
+# {K1, K6 or K7: the launch geometries (tiles, cluster, rows, threads) that
 # check_kernels held to the plain version}
 CHECKED_GRIDS = {}
 
 
 def cluster_kernels():
-    """The kernels that launch as thread-block clusters: K1 and K6."""
-    from dgtpu_torch.ops import soa
+    """The kernels that launch as thread-block clusters: K1, K6 and K7."""
+    from dgtpu_torch.ops import soa, stream
     from dgtpu_torch.ops import stokes_soa as ss
-    return (soa.half_sweep, ss.dg_half_sweep)
+    return (soa.half_sweep, ss.dg_half_sweep, stream.multi_half_sweep)
 
 
 def check_kernels(cases, label, worst):
@@ -632,7 +680,8 @@ def check_kernels(cases, label, worst):
         key = launched(kern)
         worst[key] = tuple(max(a, b) for a, b in zip(worst.get(key, (0.0, 0.0)),
                                                       (err, rel)))
-        grid = grid_record(kern, args) if key in cluster_kernels() else None
+        grid = grid_record(kern, args, kw[0] if kw else None) \
+            if key in cluster_kernels() else None
         if grid is not None:
             CHECKED_GRIDS.setdefault(key, set()).add(tuple(grid.values()))
         print(f"[{label}] {kernel_name(kern):20s} shape {tuple(got.shape)}"
@@ -934,6 +983,16 @@ def work(kern, args):
     raise KeyError(kern)
 
 
+def stream_floor(args):
+    """The bytes K7's call at ``args`` must stream when neither color's
+    operand stays in L2 (64x64 p5: both colors' 106 MB pass the 50 MB L2):
+    each half-sweep one color's blocks (slots 1..4) and Dinv, in their
+    storage type; a first half-sweep from zero (``u`` None) reads no block."""
+    lv, blocks, Dinv, rhs, u, n_half, *base = args
+    per_color = nbytes(blocks[0, 1:], Dinv[0])
+    return n_half * per_color - (nbytes(blocks[0, 1:]) if u is None else 0)
+
+
 def bound(kern, args):
     """(least ms the card could take for one call, "bytes" or
     "operations")."""
@@ -1146,15 +1205,19 @@ def cycles_in_turns(cycles, rhs, k, label, card):
 
 def sweep_cases(lv, blocks, Dinv, rand):
     """K7 cases on one level: n_half 2 and 8, from u and from zero with a
-    base, on the default grid and on one CTA."""
-    from dgtpu_torch.ops import stream
+    base, on the default grid, on one cluster (it strides over every cell
+    tile) and on as many clusters as the card holds at once."""
+    import torch
+    from dgtpu_torch.ops import _kernels, stream
     B, C = Dinv.shape[1], Dinv.shape[3]
     r, u, base = rand(2, B, C), rand(2, B, C), rand(2, B, C)
+    most = _kernels.resident_clusters(B, C, blocks.dtype == torch.bfloat16)
     k7 = stream.multi_half_sweep
     return [(k7, (lv, blocks, Dinv, r, u, 8)),
             (k7, (lv, blocks, Dinv, r, None, 8, base)),
             (k7, (lv, blocks, Dinv, r, u, 2)),
-            (k7, (lv, blocks, Dinv, r, u, 8), {"ctas": 1})]
+            (k7, (lv, blocks, Dinv, r, u, 8), {"clusters": 1}),
+            (k7, (lv, blocks, Dinv, r, None, 8, base), {"clusters": most})]
 
 
 def streamed_stokes_cases(sl, rand):
@@ -1436,8 +1499,16 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
         top = len(cyc.levels) - 2
         geo = max(i for i, t in enumerate(cyc.transfers) if t.kind == "geometric")
         shape0 = cyc.levels[0].Dinv.shape[:3]
+        mid = cyc.levels[-2]                  # the p3 level on the finest grid, B 16
+        r16, u16 = rand(*mid.Dinv.shape[:3]), rand(*mid.Dinv.shape[:3])
+        low = cyc.levels[-3]                  # the p1 level on the finest grid, B 4
+        r4, u4 = rand(*low.Dinv.shape[:3]), rand(*low.Dinv.shape[:3])
         calls = {
             "R1 half-sweep, color 1": (vcycle.half_sweep, (lv, r, u, 1)),
+            "R1 half-sweep on the B 16 level, color 0": (vcycle.half_sweep,
+                                                         (mid, r16, u16, 0)),
+            "R1 half-sweep on the B 4 level, color 1 + base": (vcycle.half_sweep,
+                                                               (low, r4, u4, 1, r4)),
             "R2 residual": (vcycle.stencil_apply, (lv, u, r, -1.0)),
             "R3 polynomial P e + u": (vcycle.transfer, (
                 cyc.P[top], rand(*cyc.levels[top].Dinv.shape[:3]), False, u)),
@@ -1456,16 +1527,16 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
             p_ms = cuda_ms(lambda: plain_version(kern)(*args), 50)
             b_ms, b_by = bound(kern, args)
             in_graph = (f", {graph_ms(lambda: kern(*args)):.5f} ms in a graph"
-                        if kern is vcycle.transfer else "")
+                        if kern in (vcycle.half_sweep, vcycle.transfer) else "")
             print(f"[21] {label} at {name} finest shapes: kernel {ms:.4f} ms{in_graph}, "
                   f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
                   f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
-            if kern is vcycle.transfer:
+            if kern in (vcycle.half_sweep, vcycle.transfer):
                 run = lambda: kern(*args)              # noqa: E731
                 for how, time_fn in (("eager", lambda: cuda_ms(run, 200)),
                                      ("in a graph", lambda: graph_ms(run))):
                     parent_turns(f"[21] {label} at {name} finest shapes, {how}", run,
-                                 time_fn, card, False)
+                                 time_fn, card, kern is vcycle.half_sweep)
             if name == "64x64 p5":
                 timed.setdefault(kern, (args, ms, p_ms))
             if kern is vcycle.dense_apply:
@@ -1690,13 +1761,16 @@ def main():
         cases += [(soa.stencil_apply, (s.lv, s.res.to(torch.bfloat16), u, r, -1.0)),
                   (soa.stencil_apply, (s.lv, s.res.to(torch.bfloat16), u))]
     check_kernels(cases, "13 64x64 p5 finest", worst)
-    n_ctas = min(hyb32.streams[top].C // 32, _kernels.coresident_ctas(36, False))
-    print(f"[13] K7 grids: {n_ctas} CTAs by default at 64x64 p5 (co-resident "
-          f"limit {_kernels.coresident_ctas(36, False)} float32, "
-          f"{_kernels.coresident_ctas(36, True)} bfloat16), 1 CTA when asked",
-          flush=True)
-    if n_ctas < 64:
-        raise AssertionError(f"K7 ran on {n_ctas} CTAs at 64x64 p5")
+    C64 = hyb32.streams[top].C
+    for name, bf16 in (("float32", False), ("bfloat16", True)):
+        grid = dict(zip(("tiles", "cluster", "rows", "threads"),
+                        _kernels.multi_half_sweep_grid(36, C64, bf16)))
+        print(f"[13] K7 grid at 64x64 p5, {name} blocks: {grid_text(grid)} by default "
+              f"(the card holds {_kernels.resident_clusters(36, C64, bf16)} at once), "
+              f"1 and the resident count when asked", flush=True)
+        if grid["tiles"] < -(-C64 // 32):
+            raise AssertionError(f"K7's {name} clusters stride over the 64x64 p5 tiles: "
+                                 f"{grid}")
     sl = sst.StreamedStokesLevel(dg32.levels[-1])
     check_kernels(streamed_stokes_cases(sl, rand), "13 Stokes 32x32 streamed", worst)
     per = synthetic_soa_level(rng, 16, 8, 8)
@@ -1774,6 +1848,8 @@ def main():
     per_call = {
         "K7 float32, pre-smoother from u": (stream.multi_half_sweep,
                                            (s32.lv, *s32.sweep, r, u, pre)),
+        "K7 bfloat16, pre-smoother from u": (stream.multi_half_sweep,
+                                            (s16.lv, *s16.sweep, r, u, pre)),
         "K7 bfloat16, defect form": (stream.multi_half_sweep,
                                      (s16.lv, *s16.sweep, r, None, pre, u)),
         "K5 bfloat16 residual": (soa.stencil_apply,
@@ -1796,12 +1872,8 @@ def main():
                   f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
             if kern is stream.multi_half_sweep:
                 timed.setdefault(kern, (args, ms, plain_ms))
-                run = lambda: kern(*args)      # noqa: E731
-                parent_turns(f"[16] {name} at {shapes} streamed finest shapes, eager",
-                             run, lambda: cuda_ms(run, 50), card, True)
-            elif kern is soa.stencil_apply or kern is sst.dg_pass:
-                kernel_times(f"[16] {name} at {shapes} streamed finest shapes", kern, args,
-                             card)
+            kernel_times(f"[16] {name} at {shapes} streamed finest shapes", kern, args,
+                         card, 20 if kern is stream.multi_half_sweep else 200)
 
     rolled_paths, rolled_ms = rolled_phases(card, rng, worst, ogrid, u_soa, soa_ms)
     timed.update(rolled_ms)
@@ -1855,8 +1927,8 @@ def main():
         if record[-1]["launches"] == 0:
             raise AssertionError(f"{kernel_name(kern)} was launched by no main path")
 
-    print(f"K1 and K6 held to their plain versions at the launch geometries (cell "
-          f"tiles, CTAs per cluster, output modes per CTA, threads per CTA) "
+    print(f"K1, K6 and K7 held to their plain versions at the launch geometries (cell "
+          f"tiles or clusters, CTAs per cluster, output modes per CTA, threads per CTA) "
           f"{ {kernel_name(k): sorted(g) for k, g in CHECKED_GRIDS.items()} }", flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

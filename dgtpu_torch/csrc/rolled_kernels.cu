@@ -26,18 +26,20 @@
 // wrapped blocks are zero unless the grid is an O-grid), j-neighbors outside
 // the grid are zero halos.  This file shares no device code with
 // soa_kernels.cu: there the cells lie in the contiguous axis and a thread
-// owns a cell, here a block row is contiguous, so in R1 and R2 a CTA owns a
-// cell, a warp an output row, and the lanes run along the row and reduce by
-// shuffles; every block element is read once, coalesced.  R3's operands are
-// a few KB, so a CTA owns a tile of cells and a thread an output (below).
+// owns a cell, here a cell's blocks are contiguous, so in R1 and R2 a CTA
+// owns a cell, a warp an output row, and the lanes run along the row and
+// reduce by shuffles; every block element is read once, coalesced (R1
+// stages the cell's blocks in shared memory by bulk copies first).  R3's
+// operands are a few KB, so a CTA owns a tile of cells and a thread an
+// output (below).
 //
 // What bounds them on the card: the finest half-sweep reads half the cells'
 // four off-diagonal blocks and diagonal inverse (0.83 MB at 8x8 p=5, 53 MB
 // at 64x64 p=5), so device-memory bytes bound R1 and R2 on large grids; at
-// 8x8 a launch is 64 CTAs and the host's launch rate bounds the cycle.  The
-// TPU's color-split packing (use_split) halves the block traffic of a color
-// pass there; a per-cell CTA reads only the active color's blocks to begin
-// with, so one kernel serves every (Nj, Ni), odd Ni included.
+// 8x8 a launch is 32 to 64 CTAs and latency bounds it.  The TPU's
+// color-split packing (use_split) halves the block traffic of a color pass
+// there; R1's CTAs take the active color's cells only, so one kernel serves
+// every (Nj, Ni), odd Ni included.
 //
 // Every entry point is extern "C" (bound with ctypes), takes raw device
 // pointers the caller allocated, launches on the given stream without
@@ -46,6 +48,10 @@
 // may alias an input.
 
 #include <algorithm>
+#include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include <cuda_runtime.h>
 
@@ -53,7 +59,7 @@
 
 namespace {
 
-constexpr int WARPS = 4;            // warps per CTA: output rows in flight
+constexpr int WARPS = 4;            // warps per CTA of R2 and R4: output rows in flight
 constexpr int THREADS = 32 * WARPS;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -75,16 +81,32 @@ __device__ __forceinline__ float rows_dot(const float* __restrict__ M, const flo
     return warp_sum(acc);
 }
 
-// Stage the fields slots s0..4 of cell (j, i) read into fld ((5 - s0), B):
-// slot 0 the cell's own vector, 1 / 2 its i-neighbors (circular), 3 / 4 its
+// rows_dot's sum with M and f in shared memory and rows = n = B: the same
+// lane split and order of sums.  kB > 0: B known at compile time (the loop
+// unrolled, the division by B a multiply); 0: any B.
+template <int kB>
+__device__ __forceinline__ float smem_rows_dot(const float* M, const float* f, int groups,
+                                               int a, int B_any, int lane) {
+    const int n = kB > 0 ? kB : B_any;
+    float acc = 0.f;
+#pragma unroll
+    for (int t = lane; t < groups * n; t += 32) {
+        const int g = t / n;
+        acc = fmaf(M[(g * n + a) * n + (t - g * n)], f[t], acc);
+    }
+    return warp_sum(acc);
+}
+
+// Stage the fields slots 0..4 of cell (j, i) read into fld (5, B): slot 0
+// the cell's own vector, 1 / 2 its i-neighbors (circular), 3 / 4 its
 // j-neighbors (zero outside the grid) -- rolled.neighbor_fields.
 __device__ __forceinline__ void stage_fields(float* fld, const float* __restrict__ x,
-                                             int j, int i, int Nj, int Ni, int B, int s0) {
+                                             int j, int i, int Nj, int Ni, int B) {
     const int il = (i == 0) ? Ni - 1 : i - 1;
     const int ir = (i == Ni - 1) ? 0 : i + 1;
-    for (int t = threadIdx.x; t < (5 - s0) * B; t += blockDim.x) {
-        const int s = s0 + t / B;
-        const int b = t - (s - s0) * B;
+    for (int t = threadIdx.x; t < 5 * B; t += blockDim.x) {
+        const int s = t / B;
+        const int b = t - s * B;
         int jj = j, ii = i;
         if (s == 1) ii = il;
         else if (s == 2) ii = ir;
@@ -99,41 +121,231 @@ __device__ __forceinline__ void stage_fields(float* fld, const float* __restrict
 // for the cells with (i + j) % 2 == color, and (base +) u elsewhere.  Every
 // neighbor is read from the pre-update u, as the masked sweep does: with an
 // odd Ni the two cells across the row's wrap have one color and read each
-// other, so an in-place update would race.  One CTA per cell; an inactive
-// cell's CTA only copies, so the blocks and inverses of the other color are
-// never read.
-__global__ void half_sweep_kernel(const float* __restrict__ blocks,
-                                  const float* __restrict__ dinv,
-                                  const float* __restrict__ rhs,
-                                  const float* __restrict__ u,
-                                  const float* __restrict__ base,
-                                  float* __restrict__ out,
-                                  int color, int Nj, int Ni, int B, int accumulate) {
-    extern __shared__ float sm[];
-    float* fld = sm;            // (4, B): the neighbor fields
-    float* t = sm + 4 * B;      // (B): rhs - off
-    const int cell = blockIdx.x;
-    const int j = cell / Ni, i = cell - j * Ni;
-    const size_t v0 = (size_t)cell * B;
-    if (((i + j) & 1) != color) {
-        for (int b = threadIdx.x; b < B; b += blockDim.x)
-            out[v0 + b] = accumulate ? base[v0 + b] + u[v0 + b] : u[v0 + b];
-        return;
+// other, so an in-place update would race.
+//
+// What bounds it: a half-sweep reads the active cells' four off-diagonal
+// blocks and Dinv, 5 B^2 floats a cell (53 MB at 64x64 p5, bound 16.3 us).
+// The first R1 ran a CTA per cell of either color (half of them only
+// copied) and each warp walked its output rows with at most 5 loads a lane
+// in flight, 27% of the bound at 64x64.  Here:
+//   - the grid is the active color's cells only, CTA k its k-th cell in row
+//     order (cell_of); CTA k also copies the other color's cells k, k +
+//     grid, ... (odd Ni gives the colors unequal counts; a 1x1 level has no
+//     cell of color 1, and its one CTA only copies);
+//   - in a cell's rolled blocks slots 1..4 are one contiguous run of 4 B^2
+//     floats and Dinv another of B^2, so one thread stages both in shared
+//     memory by two bulk copies (cp.async.bulk, the TMA's 1-D form) that
+//     complete on an mbarrier, every byte of the cell in flight at once,
+//     while the other threads stage the four neighbor fields, rhs and base,
+//     and copy the other color's cells;
+//   - then each warp takes output rows a = warp, warp + warps, ... and
+//     reduces them from shared memory as before (rows_dot).  A CTA has 8
+//     warps where the card holds every CTA of the launch at once that way,
+//     else 4, else 2, else whichever holds the most (r1_warps): on the small
+//     grids more warps shorten each CTA's row loop, on the large grids of
+//     small cells (B 4 and 16 at 64x64: 2,048 CTAs) smaller CTAs let the
+//     whole launch be resident in one wave.  (B 36 cells are bounded by
+//     their 27 KB of shared memory, 8 CTAs an SM, whatever the warps.)
+// A bulk copy needs 16-byte addresses and sizes: B^2 % 4 == 0 and 16-byte
+// aligned blocks and Dinv (B 36, 16 and 4, the p5/p3/p1 levels).  Other B (B
+// 9, the p2 levels: a 324-byte Dinv) stage the same shared memory by 4-byte
+// cp.async copies instead; the launcher picks the body by that shape rule.
+// (Staging B 36 and 16 by cp.async as well ran 15% and 20% slower on an
+// H100, in a graph at 64x64, so the bulk copies stay where they can.)
+// The sums are rows_dot's, in the first R1's order, so the results are the
+// same bit for bit.
+constexpr int R1_WARPS = 8;   // warps per CTA at most
+
+// (j, i) of the k-th cell of ``color`` in row order: each pair of rows
+// (2p, 2p + 1) holds Ni cells of each color, ceil((Ni - color) / 2) of them
+// in row 2p.
+__device__ __forceinline__ void cell_of(int k, int color, int Ni, int* j, int* i) {
+    const int p = k / Ni, r = k - p * Ni;
+    const int n0 = (Ni - color + 1) >> 1;
+    if (r < n0) {
+        *j = 2 * p;
+        *i = color + 2 * r;
+    } else {
+        *j = 2 * p + 1;
+        *i = 1 - color + 2 * (r - n0);
     }
-    stage_fields(fld, u, j, i, Nj, Ni, B, 1);
+}
+
+// How many cells of ``color`` an (Nj, Ni) grid has.
+inline int cells_of(int color, int Nj, int Ni) {
+    return (Nj / 2) * Ni + (Nj % 2) * ((Ni - color + 1) / 2);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to this CTA's shared memory, completing on
+// the mbarrier ``bar``.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+        "r"(smem_addr(bar))
+        : "memory");
+}
+
+// kB > 0: B known at compile time; kW > 0: the CTA's warps, else blockDim.
+template <int kB, bool kBulk, int kW>
+__global__ void __launch_bounds__(32 * (kW > 0 ? kW : R1_WARPS))
+half_sweep_kernel(const float* __restrict__ blocks, const float* __restrict__ dinv,
+                  const float* __restrict__ rhs, const float* __restrict__ u,
+                  const float* __restrict__ base, float* __restrict__ out, int color,
+                  int Nj, int Ni, int B_any, int accumulate, int n_active, int n_other) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int B = kB > 0 ? kB : B_any;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem);          // 16 bytes
+    float* blk = reinterpret_cast<float*>(smem + 16);          // (4, B, B): slots 1..4
+    float* dv = blk + 4 * B * B;                               // (B, B)
+    float* fld = dv + B * B;                                   // (4, B): the fields
+    float* r = fld + 4 * B;                                    // (B): rhs
+    float* bs = r + B;                                         // (B): base
+    float* t = bs + B;                                         // (B): rhs - off
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const bool active = blockIdx.x < n_active;
+    int j = 0, i = 0;
+    size_t v0 = 0;
+    if (active) {
+        cell_of(blockIdx.x, color, Ni, &j, &i);
+        const size_t cell = (size_t)j * Ni + i;
+        v0 = cell * B;
+        const float* src = blocks + (cell * 5 + 1) * B * B;
+        const float* src_d = dinv + cell * B * B;
+        if constexpr (kBulk) {
+            if (tid == 0) {
+                const unsigned bytes = 5u * B * B * sizeof(float);
+                asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                             ::"r"(smem_addr(bar)) : "memory");
+                asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+                asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                             ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+                bulk_copy(blk, src, 4u * B * B * sizeof(float), bar);
+                bulk_copy(dv, src_d, (unsigned)(B * B * sizeof(float)), bar);
+            }
+        } else {
+            for (int e = tid; e < 4 * B * B; e += nt) cp_async4(blk + e, src + e);
+            for (int e = tid; e < B * B; e += nt) cp_async4(dv + e, src_d + e);
+        }
+        // the fields (rolled.neighbor_fields: i circular, j zero outside),
+        // rhs and base, one element per thread where B allows
+        const int il = (i == 0) ? Ni - 1 : i - 1;
+        const int ir = (i == Ni - 1) ? 0 : i + 1;
+        for (int e = tid; e < (accumulate ? 6 : 5) * B; e += nt) {
+            float v;
+            if (e < 4 * B) {
+                const int s = e / B, b = e - s * B;
+                int jj = j, ii = i;
+                if (s == 0) ii = il;
+                else if (s == 1) ii = ir;
+                else if (s == 2) jj = j - 1;
+                else jj = j + 1;
+                v = (jj < 0 || jj >= Nj) ? 0.f : u[((size_t)jj * Ni + ii) * B + b];
+            } else {
+                v = (e < 5 * B ? rhs : base)[v0 + (e - 4 * B) % B];
+            }
+            fld[e] = v;   // fld, r and bs are consecutive
+        }
+    }
+    // the other color's cells: out = (base +) u
+    for (int k = blockIdx.x; k < n_other; k += gridDim.x) {
+        int jo, io;
+        cell_of(k, 1 - color, Ni, &jo, &io);
+        const size_t w0 = ((size_t)jo * Ni + io) * B;
+        for (int b = tid; b < B; b += nt)
+            out[w0 + b] = accumulate ? base[w0 + b] + u[w0 + b] : u[w0 + b];
+    }
+    if (!active) return;
+    if constexpr (!kBulk) cp_async_wait_all();
     __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* off = blocks + ((size_t)cell * 5 + 1) * B * B;
-    for (int a = warp; a < B; a += WARPS) {
-        const float acc = rows_dot(off, fld, 4, B, B, a, lane);
-        if (lane == 0) t[a] = rhs[v0 + a] - acc;
+    if constexpr (kBulk) {
+        unsigned done = 0;
+        while (!done)
+            asm volatile(
+                "{\n.reg .pred p;\n"
+                "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                "selp.u32 %0, 1, 0, p;\n}\n"
+                : "=r"(done) : "r"(smem_addr(bar)) : "memory");
+    }
+    const int warp = tid >> 5, lane = tid & 31, warps = kW > 0 ? kW : nt >> 5;
+    for (int a = warp; a < B; a += warps) {
+        const float acc = smem_rows_dot<kB>(blk, fld, 4, a, B, lane);
+        if (lane == 0) t[a] = r[a] - acc;
     }
     __syncthreads();
-    const float* dv = dinv + (size_t)cell * B * B;
-    for (int a = warp; a < B; a += WARPS) {
-        const float acc = rows_dot(dv, t, 1, B, B, a, lane);
-        if (lane == 0) out[v0 + a] = accumulate ? base[v0 + a] + acc : acc;
+    for (int a = warp; a < B; a += warps) {
+        const float acc = smem_rows_dot<kB>(dv, t, 1, a, B, lane);
+        if (lane == 0) out[v0 + a] = accumulate ? bs[a] + acc : acc;
     }
+}
+
+using R1Body = decltype(&half_sweep_kernel<0, true, 0>);
+
+// R1's body for B: the bulk copy or the 4-byte staging, B and the warps
+// compiled in for the port's levels (p5, p3, p2, p1).
+template <int kB, bool kBulk>
+R1Body r1_body_of(int warps) {
+    return warps == 8 ? &half_sweep_kernel<kB, kBulk, 8>
+         : warps == 4 ? &half_sweep_kernel<kB, kBulk, 4> : &half_sweep_kernel<kB, kBulk, 2>;
+}
+
+R1Body r1_body(int B, bool bulk, int warps) {
+    if (bulk) {
+        if (B == 36) return r1_body_of<36, true>(warps);
+        if (B == 16) return r1_body_of<16, true>(warps);
+        if (B == 4) return r1_body_of<4, true>(warps);
+        return &half_sweep_kernel<0, true, 0>;
+    }
+    if (B == 9) return r1_body_of<9, false>(warps);
+    return &half_sweep_kernel<0, false, 0>;
+}
+
+// R1's warps per CTA for ``n`` CTAs of ``smem`` bytes (the note above):
+// found once per (B, body, n) and kept, so only a first launch asks the
+// card.  Past 48 KB the body opts in to its shared memory first.
+cudaError_t r1_warps(int B, bool bulk, size_t smem, int n, int* warps) {
+    static std::mutex mu;
+    static std::map<std::tuple<int, bool, int>, int> found;
+    const std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple(B, bulk, n);
+    const auto it = found.find(key);
+    if (it != found.end()) {
+        *warps = it->second;
+        return cudaSuccess;
+    }
+    const int sms = sm_count();
+    if (sms == 0) return cudaErrorNoDevice;
+    int best = 0, best_ctas = -1;
+    for (int w = R1_WARPS; w >= 2; w /= 2) {
+        const R1Body body = r1_body(B, bulk, w);
+        if (smem > 48 * 1024) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                (const void*)body, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return e;
+        }
+        int per_sm = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, (const void*)body, 32 * w, smem);
+        if (e != cudaSuccess) return e;
+        if (per_sm * sms >= n) {     // every CTA resident at once
+            best = w;
+            break;
+        }
+        if (per_sm * sms > best_ctas) {
+            best = w;
+            best_ctas = per_sm * sms;
+        }
+    }
+    if (best == 0) return cudaErrorInvalidConfiguration;
+    found.emplace(key, best);
+    *warps = best;
+    return cudaSuccess;
 }
 
 // R2: out[j, i] = (base[j, i] +) sign * sum_{s=0..4} A[j, i, s] nbr_s(x) over
@@ -146,7 +358,7 @@ __global__ void stencil_apply_kernel(const float* __restrict__ blocks,
     extern __shared__ float fld[];   // (5, B)
     const int cell = blockIdx.x;
     const int j = cell / Ni, i = cell - j * Ni;
-    stage_fields(fld, x, j, i, Nj, Ni, B, 0);
+    stage_fields(fld, x, j, i, Nj, Ni, B);
     __syncthreads();
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const float* blk = blocks + (size_t)cell * 5 * B * B;
@@ -354,8 +566,16 @@ extern "C" {
 int rolled_half_sweep(const float* blocks, const float* dinv, const float* rhs,
                       const float* u, const float* base, float* out, int color,
                       int Nj, int Ni, int B, int accumulate, cudaStream_t stream) {
-    half_sweep_kernel<<<Nj * Ni, THREADS, (size_t)5 * B * sizeof(float), stream>>>(
-        blocks, dinv, rhs, u, base, out, color, Nj, Ni, B, accumulate);
+    const int n_active = cells_of(color, Nj, Ni), n_other = cells_of(1 - color, Nj, Ni);
+    const size_t smem = 16 + (size_t)(5 * B * B + 7 * B) * sizeof(float);
+    const bool bulk = (B * B) % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(dinv) % 16 == 0;
+    int warps = 0;
+    const cudaError_t e = r1_warps(B, bulk, smem, std::max(n_active, 1), &warps);
+    if (e != cudaSuccess) return (int)e;
+    const R1Body kernel = r1_body(B, bulk, warps);
+    kernel<<<std::max(n_active, 1), 32 * warps, smem, stream>>>(
+        blocks, dinv, rhs, u, base, out, color, Nj, Ni, B, accumulate, n_active, n_other);
     return (int)cudaGetLastError();
 }
 

@@ -32,8 +32,10 @@
 //                       matvec_color(D) + the two DG-diagonal MACs
 //                       (pallas_stokes_stream.py:109-113)
 //   K7 multi_half_sweep all n half-sweeps of one smoother application
-//                       (StreamedLevel.half_sweeps) in one cooperative launch,
-//                       float32 or bfloat16 blocks
+//                       (StreamedLevel.half_sweeps) in one launch: K1's
+//                       cluster body, a cooperative launch with a grid
+//                       barrier between half-sweeps, float32 or bfloat16
+//                       blocks
 //
 // Layout (the TPU kernels'): a color-pair vector is (2, B, C) with C =
 // Nj * Ni/2 cells per color in the contiguous axis; operator blocks per color
@@ -43,7 +45,7 @@
 //
 // What bounds them on the card: at 8x8 (C = 32 on the finest level) one CTA
 // per 32-cell tile would be one CTA per launch, so K5 spreads its output
-// modes over up to Bd CTAs per color and K1 and K6 over the CTAs of a
+// modes over up to Bd CTAs per color and K1, K6 and K7 over the CTAs of a
 // thread-block cluster (below), and a cycle is ~90 (Poisson p5) to ~800 (Stokes
 // W-cycle) launches, so launched eagerly the host's launch rate bounds the
 // cycle; the mixed route therefore replays each cycle as one captured CUDA
@@ -57,7 +59,7 @@
 // pointers the caller allocated, launches on the given stream without
 // synchronising, and returns cudaGetLastError() (or the launch's own error)
 // as an int.  ``accumulate`` selects ``out = base + result`` (base may be
-// null otherwise).  K1 and K6 launch as clusters: sm_90 and a CUDA 12
+// null otherwise).  K1, K6 and K7 launch as clusters: sm_90 and a CUDA 12
 // runtime.
 
 #include <algorithm>
@@ -88,6 +90,13 @@ __device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) {
     return __bfloat162float(
         __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// The stored element itself through the read-only path, upconverted later
+// (to_f at the multiply-add), so a chain's registers hold loads in flight.
+__device__ __forceinline__ float ldg_raw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldg_raw(const __nv_bfloat16* p) {
+    return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 __device__ __forceinline__ int wrap(int x, int C) {
@@ -127,126 +136,6 @@ __device__ __forceinline__ void packed_pos(int j, int i, int nh, int* c, int* q)
     const int ip = (cc == 0) ? (i - (j % 2)) / 2 : (i - 1 + (j % 2)) / 2;
     *c = cc;
     *q = j * nh + ip;
-}
-
-// sum_{s >= s0} sum_b blk[s][b][a] * fld[s][b] for cell q: one output mode
-// of the stencil row.  blk is one color's (5, Bs, Bd, C) of storage type T,
-// read through the read-only path when kLdg.
-template <bool kLdg = false, typename T>
-__device__ __forceinline__ float stencil_row(const T* __restrict__ blk,
-                                             const float* fld, int s0, int a, int Bs,
-                                             int Bd, int C, int q, int tx) {
-    const size_t slot = (size_t)Bs * Bd * C;
-    float acc = 0.f;
-    for (int s = s0; s < 5; ++s) {
-        const T* A = blk + (size_t)s * slot;
-        const float* f = fld + s * Bs * TC + tx;
-        for (int b = 0; b < Bs; ++b) {
-            const T* e = A + ((size_t)b * Bd + a) * C + q;
-            acc = fmaf(kLdg ? ldg_f(e) : to_f(*e), f[b * TC], acc);
-        }
-    }
-    return acc;
-}
-
-// The red-black half-sweep on one tile of TC cells, K7's body (K1 has its own):
-//   out_c[:, q] = (base_c +) Dinv_c (rhs_c - sum_{s=1..4} blk_c[s] nbr_s(o))
-// for the cells q of tile ``tile`` of ``color`` (_soa_smooth body,
-// pallas_soa.py:341-353; StreamedLevel.half_sweeps, pallas_stream.py:283-300).
-// o (B, C) is the opposite color's lattice, null for a zero one (then t =
-// rhs and the blocks are not read); blk_c (5, B, B, C, slot 0 not read) and
-// dinv_c (B, B, C) are one color's, of storage type T.  The CTA stages the
-// neighbor fields of its cells in shared memory fld (5, B, TC), then t = rhs
-// - off in place of slot 0, then applies Dinv, so each cell's B modes are
-// gathered once and every block element is read once.  kShared: o is
-// written by other CTAs of the same (cooperative) launch between calls, so
-// it is read through L2 (__ldcg), and the blocks by plain loads; otherwise
-// o by plain loads and the blocks through the read-only path.  Each caller
-// runs faster with its own choice than with the other's on the H100
-// (PERF.md).  Every thread of the CTA calls it; it ends with the tile's
-// shared memory free again.
-template <typename T, bool kShared>
-__device__ __forceinline__ void half_sweep_tile(
-        const T* __restrict__ blk_c, const T* __restrict__ dinv_c,
-        const float* __restrict__ rhs_c, const float* o, const float* base_c,
-        float* out_c, float* fld, int tile, int color, int B, int C, int nh,
-        int periodic) {
-    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
-    const int q = tile * TC + tx;
-    const bool valid = q < C;
-    if (valid && o) {
-        for (int s = 0; s < 4; ++s) {
-            const int lane = nbr_lane(q, s, color, C, nh, periodic);
-            for (int b = ty; b < B; b += ny) {
-                const float* p = o + (size_t)b * C + lane;
-                fld[((s + 1) * B + b) * TC + tx] = kShared ? __ldcg(p) : *p;
-            }
-        }
-    }
-    __syncthreads();
-    if (valid)
-        for (int a = ty; a < B; a += ny)
-            fld[a * TC + tx] = rhs_c[(size_t)a * C + q]
-                             - (o ? stencil_row<!kShared>(blk_c, fld, 1, a, B, B, C, q, tx)
-                                  : 0.f);
-    __syncthreads();
-    if (valid)
-        for (int a = ty; a < B; a += ny) {
-            float acc = 0.f;
-            for (int b = 0; b < B; ++b) {
-                const T* e = dinv_c + ((size_t)b * B + a) * C + q;
-                acc = fmaf(kShared ? to_f(*e) : ldg_f(e), fld[b * TC + tx], acc);
-            }
-            const size_t i = (size_t)a * C + q;
-            out_c[i] = base_c ? base_c[i] + acc : acc;
-        }
-    __syncthreads();
-}
-
-// K7: n_half red-black half-sweeps (colors 0, 1, 0, 1, ...) in one
-// cooperative launch, the whole of StreamedLevel.half_sweeps(n_half)
-// (pallas_stream.py:234-345):
-//   h even: out[0] = Dinv_0 (rhs_0 - off_0(state[1]));  h odd: out[1] likewise
-// with state[1] = u[1] (zero when u is null) before the first half-sweep, and
-// out (+ base) at the end.  blocks / dinv are per-color operands of storage
-// type T with color strides blk_cs / dinv_cs elements (the float32 SoA
-// packing, or one bfloat16 [Dinv, iL, iR, jL, jR] tensor).  A persistent grid
-// of at most the co-resident CTA count strides over the tiles;
-// half-sweep h reads only the color h-1 wrote, so one grid-wide barrier per
-// half-sweep is the whole dependency.  With a base, color 0 takes its base
-// after one more barrier (the last half-sweep reads it); color 1 in the last
-// half-sweep.  Each CTA owns the same tiles in every half-sweep.
-template <typename T>
-__global__ void multi_half_sweep_kernel(const T* __restrict__ blocks,
-                                        const T* __restrict__ dinv,
-                                        long long blk_cs, long long dinv_cs,
-                                        const float* __restrict__ rhs,
-                                        const float* __restrict__ u,
-                                        const float* __restrict__ base,
-                                        float* out, int n_half, int B, int C, int nh,
-                                        int periodic) {
-    extern __shared__ float fld[];   // (5, B, TC)
-    cg::grid_group grid = cg::this_grid();
-    const size_t BC = (size_t)B * C;
-    const int n_tiles = (C + TC - 1) / TC;
-    for (int h = 0; h < n_half; ++h) {
-        const int color = h & 1;
-        const size_t oc = (size_t)(1 - color) * BC;
-        const float* o = h > 0 ? out + oc : (u ? u + oc : nullptr);
-        const float* b = (base && h == n_half - 1) ? base + (size_t)color * BC : nullptr;
-        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-            half_sweep_tile<T, true>(blocks + color * blk_cs, dinv + color * dinv_cs,
-                               rhs + (size_t)color * BC, o, b, out + (size_t)color * BC,
-                               fld, tile, color, B, C, nh, periodic);
-        if (h + 1 < n_half || base) grid.sync();
-    }
-    if (!base) return;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int q = tile * TC + threadIdx.x;
-        if (q < C)
-            for (int a = threadIdx.y; a < B; a += blockDim.y)
-                out[(size_t)a * C + q] += base[(size_t)a * C + q];
-    }
 }
 
 // K3: out[z] = (base[z] +) W(M,K) . x[z](K,N) for z < batch, the small
@@ -461,6 +350,42 @@ __device__ __forceinline__ void stage_fields_async(float* fld, const float* __re
     if (wait) cp_async_wait_all();
 }
 
+// K7's staging of the four neighbor fields (slots 1..4 of fld) of cell q
+// from the opposite lattice o, which other CTAs of the same launch wrote:
+// through L2 (__ldcg), so no SM reads a line its L1 kept from an earlier
+// half-sweep.  The (slot, mode) rows spread over the CTA's thread rows, in
+// chunks of K7_STAGE loads issued together before their stores.
+constexpr int K7_STAGE = 12;
+
+template <int kB>
+__device__ __forceinline__ void stage_fields_l2(float* fld, const float* o, int color,
+                                                int B_any, int C, int q, int nh,
+                                                int periodic) {
+    const int B = kB > 0 ? kB : B_any;
+    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
+    const int l0 = nbr_lane(q, 0, color, C, nh, periodic);
+    const int l1 = nbr_lane(q, 1, color, C, nh, periodic);
+    const int l2 = nbr_lane(q, 2, color, C, nh, periodic);
+    const int l3 = nbr_lane(q, 3, color, C, nh, periodic);
+    for (int r0 = ty; r0 < 4 * B; r0 += K7_STAGE * ny) {
+        float v[K7_STAGE];
+#pragma unroll
+        for (int k = 0; k < K7_STAGE; ++k) {
+            const int r = r0 + k * ny;
+            if (r < 4 * B) {
+                const int s = r / B, b = r - s * B;
+                const int lane = s == 0 ? l0 : s == 1 ? l1 : s == 2 ? l2 : l3;
+                v[k] = __ldcg(o + (size_t)b * C + lane);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < K7_STAGE; ++k) {
+            const int r = r0 + k * ny;
+            if (r < 4 * B) fld[(B + r) * TC + tx] = v[k];
+        }
+    }
+}
+
 // kBs > 0: Bs known at compile time (the b loop fully unrolled, the slots
 // double-buffered); 0: any Bs.
 template <typename T, int kBs>
@@ -640,29 +565,29 @@ constexpr int SWEEP_MAX_CLUSTER = 16;   // CTAs per cluster at most (8 is portab
 // One output's chain over slots s = kS0..4 and modes b = 0..Bs-1:
 // sum_s sum_b blk[s][b] * fld[s][b], with ``blk`` at the output's element of
 // slot 0, mode 0, ``step`` elements from mode b to b + 1 and Bs step from
-// slot s to s + 1.  The block loads need no staged field, so a kernel calls
-// issue() before its staging barrier and sum() after it.  kBs > 0: Bs known
-// at compile time and b unrolled; where every slot's loads fit in 96
-// registers (kEarly) issue() puts them all in flight, else sum() keeps one
-// slot ahead, issuing slot s + 1's loads before slot s's multiply-adds
-// (K5's body: at B 36 the early loads would take 100 registers a thread and
-// halve the CTAs an SM holds at 64x64).  kBs == 0: any Bs, the loads in
-// sum(), unrolled by 8.
-template <int kS0, int kBs>
+// slot s to s + 1; the blocks are of storage type T (K7: float32 or
+// bfloat16), held as loaded and upconverted at the multiply-add.  The block
+// loads need no staged field, so a kernel calls issue() before its staging
+// barrier and sum() after it.  kBs > 0: Bs known at compile time and b
+// unrolled; where every slot's loads fit in 96 registers (kEarly) issue()
+// puts them all in flight, else sum() keeps one slot ahead, issuing slot s +
+// 1's loads before slot s's multiply-adds (K5's body: at B 36 the early
+// loads would take 100 registers a thread and halve the CTAs an SM holds at
+// 64x64).  kBs == 0: any Bs, the loads in sum(), unrolled by 8.
+template <int kS0, int kBs, typename T = float>
 struct SlotChain {
     static constexpr int kSlots = 5 - kS0;
     static constexpr bool kEarly = kBs > 0 && kBs * kSlots <= 96;
-    float v[kEarly ? kSlots : 1][kBs > 0 ? kBs : 1];
-    const float* blk;
+    T v[kEarly ? kSlots : 1][kBs > 0 ? kBs : 1];
+    const T* blk;
     size_t step;
     int Bs;
 
-    __device__ __forceinline__ const float* slot(int s) const {
+    __device__ __forceinline__ const T* slot(int s) const {
         return blk + (size_t)s * Bs * step;
     }
 
-    __device__ __forceinline__ void issue(const float* __restrict__ b, size_t st,
-                                          int Bs_any) {
+    __device__ __forceinline__ void issue(const T* __restrict__ b, size_t st, int Bs_any) {
         blk = b;
         step = st;
         Bs = kBs > 0 ? kBs : Bs_any;
@@ -670,7 +595,7 @@ struct SlotChain {
 #pragma unroll
             for (int k = 0; k < kSlots; ++k)
 #pragma unroll
-                for (int m = 0; m < kBs; ++m) v[k][m] = __ldg(slot(kS0 + k) + m * step);
+                for (int m = 0; m < kBs; ++m) v[k][m] = ldg_raw(slot(kS0 + k) + m * step);
         }
     }
 
@@ -681,21 +606,21 @@ struct SlotChain {
             for (int k = 0; k < kSlots; ++k) {
                 const float* f = fld + (kS0 + k) * kBs * TC + tx;
 #pragma unroll
-                for (int m = 0; m < kBs; ++m) acc = fmaf(v[k][m], f[m * TC], acc);
+                for (int m = 0; m < kBs; ++m) acc = fmaf(to_f(v[k][m]), f[m * TC], acc);
             }
         } else if constexpr (kBs > 0) {
-            float cur[kBs], next[kBs];
+            T cur[kBs], next[kBs];
 #pragma unroll
-            for (int m = 0; m < kBs; ++m) cur[m] = __ldg(slot(kS0) + m * step);
+            for (int m = 0; m < kBs; ++m) cur[m] = ldg_raw(slot(kS0) + m * step);
 #pragma unroll
             for (int s = kS0; s < 5; ++s) {
                 if (s < 4) {
 #pragma unroll
-                    for (int m = 0; m < kBs; ++m) next[m] = __ldg(slot(s + 1) + m * step);
+                    for (int m = 0; m < kBs; ++m) next[m] = ldg_raw(slot(s + 1) + m * step);
                 }
                 const float* f = fld + s * kBs * TC + tx;
 #pragma unroll
-                for (int m = 0; m < kBs; ++m) acc = fmaf(cur[m], f[m * TC], acc);
+                for (int m = 0; m < kBs; ++m) acc = fmaf(to_f(cur[m]), f[m * TC], acc);
                 if (s < 4) {
 #pragma unroll
                     for (int m = 0; m < kBs; ++m) cur[m] = next[m];
@@ -704,17 +629,17 @@ struct SlotChain {
         } else {
 #pragma unroll 1
             for (int s = kS0; s < 5; ++s) {
-                const float* A = slot(s);
+                const T* A = slot(s);
                 const float* f = fld + s * Bs * TC + tx;
                 int b = 0;
                 for (; b + 8 <= Bs; b += 8) {
-                    float w[8];
+                    T w[8];
 #pragma unroll
-                    for (int u = 0; u < 8; ++u) w[u] = __ldg(A + (b + u) * step);
+                    for (int u = 0; u < 8; ++u) w[u] = ldg_raw(A + (b + u) * step);
 #pragma unroll
-                    for (int u = 0; u < 8; ++u) acc = fmaf(w[u], f[(b + u) * TC], acc);
+                    for (int u = 0; u < 8; ++u) acc = fmaf(to_f(w[u]), f[(b + u) * TC], acc);
                 }
-                for (; b < Bs; ++b) acc = fmaf(__ldg(A + b * step), f[b * TC], acc);
+                for (; b < Bs; ++b) acc = fmaf(ldg_f(A + b * step), f[b * TC], acc);
             }
         }
         return acc;
@@ -723,7 +648,8 @@ struct SlotChain {
 
 // The exchange of the note: t (modes, TC) in shared memory holds this CTA's
 // rows; after it, every row.  Every thread of every CTA of the cluster calls
-// it once, and later cluster_exit_wait() once, just before it exits.
+// it, and cluster_wait() once after each call: before it writes its rows of
+// t again (K7) or just before it exits, so no peer still reads them.
 __device__ __forceinline__ void exchange_t(float* t, int modes, int rows) {
     cg::cluster_group cluster = cg::this_cluster();
     const unsigned rank = cluster.block_rank();
@@ -738,7 +664,7 @@ __device__ __forceinline__ void exchange_t(float* t, int modes, int rows) {
     __syncthreads();
 }
 
-__device__ __forceinline__ void cluster_exit_wait() {
+__device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
@@ -792,7 +718,7 @@ half_sweep_kernel(const float* __restrict__ blocks_c, const float* __restrict__ 
         }
         out[cc] = accumulate ? b0 + acc : acc;
     }
-    cluster_exit_wait();
+    cluster_wait();
 }
 
 // K6 (the note above).  D_c is (5, Bu, Np, C); dgd / dgi are (Np, Np, C) in
@@ -852,7 +778,143 @@ dg_half_sweep_kernel(const float* __restrict__ D_c, const float* __restrict__ dg
         }
         out[cc] = accumulate ? b0 + acc : acc;
     }
-    cluster_exit_wait();
+    cluster_wait();
+}
+
+// K7: n_half red-black half-sweeps (colors 0, 1, 0, 1, ...) in one launch,
+// the whole of StreamedLevel.half_sweeps(n_half) (pallas_stream.py:234-345):
+//   h even: out[0] = Dinv_0 (rhs_0 - off_0(state[1]));  h odd: out[1] likewise
+// with state[1] = u[1] (zero when u is null: t = rhs, no block is read)
+// before the first half-sweep, and out (+ base) at the end.  blocks / dinv
+// are per-color operands of storage type T (float32 or bfloat16), with color
+// strides blk_cs / dinv_cs elements (the float32 SoA packing, or one
+// bfloat16 [Dinv, iL, iR, jL, jR] tensor).
+//
+// What bounds it: at 64x64 p5 a half-sweep streams one color's blocks, 53 MB
+// in float32 (26.5 MB in bfloat16); both colors' 106 MB pass the 50 MB L2,
+// so a launch of n half-sweeps moves n times that.  The first K7 ran one CTA
+// per 32-cell tile (64 at 64x64 on 132 SMs), each thread walking ceil(B / 8)
+// output modes, each a 144-deep chain of loads with one in flight: 84 us a
+// half-sweep against K1's 24 in a launch of its own.  So each half-sweep
+// here is K1's body on K1's grid:
+//
+//   grid (G, clusters) in clusters of G CTAs along x, G and the rows per CTA
+//   from sweep_rule over the B modes (64x64 p5: 64 clusters of 3 CTAs of 12
+//   rows; the 32x32 Stokes finest A, B 18: 16 clusters of 9 CTAs of 2 rows);
+//   one output mode per thread; the block loads through the read-only path
+//   (SlotChain, one slot ahead at B 36), t = rhs - off shared over the
+//   cluster through distributed shared memory (exchange_t), then the Dinv
+//   row.  Where the card cannot hold one cluster per cell tile at once, the
+//   clusters stride over the tiles (each cluster owns the same tiles in
+//   every half-sweep).
+//   The fields of the opposite color were written by other CTAs of this
+//   launch, and an SM's L1 may still hold their lines from two half-sweeps
+//   ago, so they are staged through L2 (__ldcg), in chunks of loads issued
+//   together; K1 stages by cp.async.ca, which caches in L1.
+//   A CTA reuses its shared memory from one tile and half-sweep to the next,
+//   while its peers may still read its rows of t: it arrives on the cluster
+//   barrier after copying its peers' rows and waits on it just before it
+//   writes its rows of t again (and before it exits), so arrive and wait
+//   alternate once per tile.
+//   Half-sweep h reads only the color h - 1 wrote, so one grid-wide barrier
+//   per half-sweep is the whole dependency: a cooperative launch with the
+//   cluster dimension (both attributes through cudaLaunchKernelEx) and
+//   grid.sync().  The runtime refuses a cooperative grid the card cannot
+//   hold at once, and each launch has its own barrier state, so a grid that
+//   does not fit fails instead of hanging.  (A barrier of K7's own on a
+//   plain cluster launch, one counter in device memory, ran within 2% of
+//   it, but would hang there and serves one K7 in flight at a time.)
+//   With a base, color 1 takes it in the last half-sweep and color 0 after
+//   one more barrier (the last half-sweep reads color 0).
+//
+// The sums keep the first K7's order (K1's): one fmaf chain from 0 over
+// slots 1..4 and b, then rhs - acc; one chain over Dinv's b, then base + acc
+// (color 0: acc + base).  So the results are the same bit for bit.
+// K7's largest CTA for B modes: the rule's rows are ceil(B / G) with G >=
+// ceil(B / SWEEP_MAX_ROWS) (12 at B 36, 9 at B 18), at least K5_MIN_WARPS
+// warps.  At B 36 two CTAs of 384 threads an SM hold the 64x64 p5 grid (64
+// clusters of 3) at once, so its registers are capped for that.
+constexpr int k7_rows(int kB) {
+    return kB == 0 ? SWEEP_MAX_ROWS
+                   : (kB + (kB + SWEEP_MAX_ROWS - 1) / SWEEP_MAX_ROWS - 1) /
+                         ((kB + SWEEP_MAX_ROWS - 1) / SWEEP_MAX_ROWS);
+}
+constexpr int k7_threads(int kB) {
+    return TC * (k7_rows(kB) > K5_MIN_WARPS ? k7_rows(kB) : K5_MIN_WARPS);
+}
+
+template <typename T, int kB>
+__global__ void __launch_bounds__(k7_threads(kB), kB == 36 ? 2 : 1)
+multi_half_sweep_kernel(const T* __restrict__ blocks, const T* __restrict__ dinv,
+                        long long blk_cs, long long dinv_cs,
+                        const float* __restrict__ rhs, const float* __restrict__ u,
+                        const float* __restrict__ base, float* out, int n_half, int B_any,
+                        int C, int nh, int periodic, int rows) {
+    extern __shared__ float fld[];   // (5, B, TC): slots 1..4 the fields, slot 0 t
+    const int B = kB > 0 ? kB : B_any;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int a = blockIdx.x * rows + ty;
+    const bool owns = ty < rows && a < B;   // this thread's output mode a
+    const size_t BC = (size_t)B * C;
+    const int n_tiles = (C + TC - 1) / TC;
+    bool arrived = false;   // on the cluster barrier, not yet waited on
+    cg::grid_group grid = cg::this_grid();
+    for (int h = 0; h < n_half; ++h) {
+        const int color = h & 1;
+        const float* o = h > 0 ? out + (size_t)(1 - color) * BC
+                               : (u ? u + (size_t)(1 - color) * BC : nullptr);
+        const bool last = base && h == n_half - 1;
+        const T* blk_c = blocks + color * blk_cs;
+        const T* dinv_c = dinv + color * dinv_cs;
+        for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+            const int q = tile * TC + tx;
+            const bool valid = q < C;
+            const bool active = valid && owns;
+            const size_t i = (size_t)a * C + q, ci = (size_t)color * BC + i;
+            float r0 = 0.f, b0 = 0.f;
+            SlotChain<1, kB, T> chain;
+            if (active) {
+                r0 = rhs[ci];
+                if (last) b0 = base[ci];
+                if (o) chain.issue(blk_c + i, BC, B);
+            }
+            if (valid && o) stage_fields_l2<kB>(fld, o, color, B, C, q, nh, periodic);
+            __syncthreads();
+            const float t = (active && o) ? r0 - chain.sum(fld, tx) : r0;
+            T d[kB > 0 ? kB : 1];
+            if constexpr (kB > 0) {
+                if (active) {
+#pragma unroll
+                    for (int b = 0; b < kB; ++b) d[b] = ldg_raw(dinv_c + (size_t)b * BC + i);
+                }
+            }
+            if (arrived) cluster_wait();
+            if (active) fld[a * TC + tx] = t;
+            exchange_t(fld, B, rows);
+            arrived = true;
+            if (active) {
+                float acc = 0.f;
+                if constexpr (kB > 0) {
+#pragma unroll
+                    for (int b = 0; b < kB; ++b) acc = fmaf(to_f(d[b]), fld[b * TC + tx], acc);
+                } else {
+                    for (int b = 0; b < B; ++b)
+                        acc = fmaf(ldg_f(dinv_c + (size_t)b * BC + i), fld[b * TC + tx], acc);
+                }
+                out[ci] = last ? b0 + acc : acc;
+            }
+        }
+        if (h + 1 < n_half || base) grid.sync();
+    }
+    if (base && owns)
+        for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+            const int q = tile * TC + tx;
+            if (q < C) {
+                const size_t i = (size_t)a * C + q;
+                out[i] = __ldcg(out + i) + base[i];
+            }
+        }
+    if (arrived) cluster_wait();
 }
 
 // The bodies of the port's levels: K1 at B 36/16/9/4 (Poisson p5/p3/p2/p1)
@@ -901,18 +963,21 @@ SweepGrid sweep_rule(int modes, int C, int sms, int most) {
 // points at.
 struct ClusterLaunch {
     cudaLaunchConfig_t cfg = {};
-    cudaLaunchAttribute attr = {};
-    ClusterLaunch(const SweepGrid& g, size_t smem, cudaStream_t stream) {
+    cudaLaunchAttribute attr[2] = {};
+    ClusterLaunch(const SweepGrid& g, size_t smem, cudaStream_t stream,
+                  bool cooperative = false) {
         cfg.gridDim = dim3(g.size, g.tiles);
         cfg.blockDim = dim3(TC, g.warps);
         cfg.dynamicSmemBytes = smem;
         cfg.stream = stream;
-        attr.id = cudaLaunchAttributeClusterDimension;
-        attr.val.clusterDim.x = g.size;
-        attr.val.clusterDim.y = 1;
-        attr.val.clusterDim.z = 1;
-        cfg.attrs = &attr;
-        cfg.numAttrs = 1;
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = g.size;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        attr[1].id = cudaLaunchAttributeCooperative;
+        attr[1].val.cooperative = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = cooperative ? 2 : 1;
     }
     ClusterLaunch(const ClusterLaunch&) = delete;
 };
@@ -994,41 +1059,72 @@ int grid_dims(cudaError_t e, const SweepGrid& g, int* dims) {
 
 inline int mode_lanes(int B) { return B < 8 ? B : 8; }
 
-// CTAs of K7 that can be resident on the card at once for block size B.
+// K7's bodies: float32 or bfloat16 blocks, at the B of the streamed levels
+// (Poisson p5/p3/p2/p1, the Stokes momentum blocks) or any B.
 template <typename T>
-cudaError_t coresident_ctas(int B, int* n) {
-    int dev, coop, sms, per_sm;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, multi_half_sweep_kernel<T>, TC * mode_lanes(B),
-            (size_t)5 * B * TC * sizeof(float));
-    if (e == cudaSuccess) *n = per_sm * sms;
-    return e;
+using MultiSweepBody = decltype(&multi_half_sweep_kernel<T, 0>);
+
+template <typename T>
+MultiSweepBody<T> multi_half_sweep_body(int B) {
+    switch (B) {
+        case 36: return multi_half_sweep_kernel<T, 36>;
+        case 18: return multi_half_sweep_kernel<T, 18>;
+        case 16: return multi_half_sweep_kernel<T, 16>;
+        case 9: return multi_half_sweep_kernel<T, 9>;
+        case 8: return multi_half_sweep_kernel<T, 8>;
+        case 4: return multi_half_sweep_kernel<T, 4>;
+        default: return multi_half_sweep_kernel<T, 0>;
+    }
 }
 
+// K7's geometry: K1's rule for B modes over C cells (sweep_grid, with K7's
+// body and shared memory), and how many of its clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters), kept per shape as sweep_grid keeps
+// the rule, so only a first launch queries the card.
+template <typename T>
+cudaError_t multi_sweep_grid(int B, int C, SweepGrid* g, int* resident) {
+    const auto kernel = multi_half_sweep_body<T>(B);
+    const size_t smem = half_sweep_smem(B);
+    cudaError_t e = sweep_grid(kernel, B, C, smem, g);
+    if (e != cudaSuccess) return e;
+    static std::mutex mu;
+    static std::map<std::tuple<const void*, int, int>, int> found;
+    const std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple((const void*)kernel, B, C);
+    const auto it = found.find(key);
+    if (it != found.end()) {
+        *resident = it->second;
+        return cudaSuccess;
+    }
+    const ClusterLaunch l(*g, smem, nullptr);
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &l.cfg);
+    if (e != cudaSuccess) return e;
+    found.emplace(key, n);
+    *resident = n;
+    return cudaSuccess;
+}
+
+// ``clusters``: the grid in clusters, 0 for the default (one per cell tile,
+// at most the resident count).  A grid the card cannot hold at once would
+// never pass its first grid barrier: refused before the launch (and by the
+// runtime, which checks a cooperative launch).
 template <typename T>
 int launch_multi_half_sweep(const void* blocks, const void* dinv, long long blk_cs,
                             long long dinv_cs, const float* rhs, const float* u,
                             const float* base, float* out, int n_half, int B, int C,
-                            int nh, int periodic, int ctas, cudaStream_t stream) {
-    int most = 0;
-    cudaError_t e = coresident_ctas<T>(B, &most);
+                            int nh, int periodic, int clusters, cudaStream_t stream) {
+    SweepGrid g;
+    int resident = 0;
+    cudaError_t e = multi_sweep_grid<T>(B, C, &g, &resident);
     if (e != cudaSuccess) return (int)e;
-    // a grid that cannot be co-resident would deadlock at grid.sync(): refuse
-    if (ctas < 1 || ctas > most) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const T* b = static_cast<const T*>(blocks);
-    const T* d = static_cast<const T*>(dinv);
-    void* args[] = {&b, &d, &blk_cs, &dinv_cs, &rhs, &u, &base, &out, &n_half, &B,
-                    &C, &nh, &periodic};
-    e = cudaLaunchCooperativeKernel((const void*)multi_half_sweep_kernel<T>, dim3(ctas),
-                                    dim3(TC, mode_lanes(B)), args,
-                                    (size_t)5 * B * TC * sizeof(float), stream);
+    if (clusters == 0) clusters = std::min(g.tiles, resident);
+    if (clusters < 1 || clusters > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+    g.tiles = clusters;
+    const ClusterLaunch l(g, half_sweep_smem(B), stream, true);
+    e = cudaLaunchKernelEx(&l.cfg, multi_half_sweep_body<T>(B), static_cast<const T*>(blocks),
+                           static_cast<const T*>(dinv), blk_cs, dinv_cs, rhs, u, base, out,
+                           n_half, B, C, nh, periodic, g.rows);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -1053,18 +1149,32 @@ int soa_half_sweep_grid(int B, int C, int* dims) {
 int soa_multi_half_sweep(const void* blocks, const void* dinv, long long blk_cs,
                          long long dinv_cs, const float* rhs, const float* u,
                          const float* base, float* out, int n_half, int B, int C, int nh,
-                         int periodic, int block_bf16, int ctas, cudaStream_t stream) {
+                         int periodic, int block_bf16, int clusters, cudaStream_t stream) {
     if (block_bf16)
         return launch_multi_half_sweep<__nv_bfloat16>(blocks, dinv, blk_cs, dinv_cs, rhs,
                                                       u, base, out, n_half, B, C, nh,
-                                                      periodic, ctas, stream);
+                                                      periodic, clusters, stream);
     return launch_multi_half_sweep<float>(blocks, dinv, blk_cs, dinv_cs, rhs, u, base,
-                                          out, n_half, B, C, nh, periodic, ctas, stream);
+                                          out, n_half, B, C, nh, periodic, clusters, stream);
 }
 
-int soa_multi_half_sweep_ctas(int B, int block_bf16, int* n) {
-    return (int)(block_bf16 ? coresident_ctas<__nv_bfloat16>(B, n)
-                            : coresident_ctas<float>(B, n));
+// K7's default launch geometry for B output modes over C cells per color:
+// dims = {clusters, cluster size, rows per CTA, threads per CTA}.
+int soa_multi_half_sweep_grid(int B, int C, int block_bf16, int* dims) {
+    SweepGrid g;
+    int resident = 0;
+    const cudaError_t e = block_bf16 ? multi_sweep_grid<__nv_bfloat16>(B, C, &g, &resident)
+                                     : multi_sweep_grid<float>(B, C, &g, &resident);
+    if (e == cudaSuccess) g.tiles = std::min(g.tiles, resident);
+    return grid_dims(e, g, dims);
+}
+
+// How many of K7's clusters for (B, C) the card holds at once: the largest
+// grid it launches.
+int soa_multi_half_sweep_clusters(int B, int C, int block_bf16, int* n) {
+    SweepGrid g;
+    return (int)(block_bf16 ? multi_sweep_grid<__nv_bfloat16>(B, C, &g, n)
+                            : multi_sweep_grid<float>(B, C, &g, n));
 }
 
 int soa_small_gemm(const float* W, const float* x, const float* base, float* out,

@@ -1,7 +1,7 @@
 """Build, load and launch the CUDA kernels of ``csrc/soa_kernels.cu`` (K1
 half-sweep, K3 small GEMM, K4 geometric transfer and K5 stencil apply of
 both SoA cycles, K6, the Stokes pressure half-sweep, and K7, the streamed
-hybrids' cooperative multi-half-sweep) and of ``csrc/rolled_kernels.cu``
+hybrids' multi-half-sweep) and of ``csrc/rolled_kernels.cu``
 (R1 half-sweep, R2 stencil apply, R3 transfer and R4 dense apply of the
 rolled cycle).
 
@@ -29,9 +29,6 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "soa_kernels.cu")
 ROLLED_SOURCE = os.path.join(_PKG, "csrc", "rolled_kernels.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "dgtpu_torch")
-# K7's grid-wide barrier (cooperative_groups::this_grid().sync()) needs no
-# -rdc=true: nvcc 12.9 builds it into this whole-program library and it
-# synchronises on the H100 (tests/test_torch_kernels.py).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -41,7 +38,8 @@ _SIGNATURES = {
     "soa_half_sweep": [_P] * 6 + [_I] * 6 + [_P],
     "soa_half_sweep_grid": [_I, _I, ctypes.POINTER(_I)],
     "soa_multi_half_sweep": [_P] * 2 + [_L] * 2 + [_P] * 4 + [_I] * 7 + [_P],
-    "soa_multi_half_sweep_ctas": [_I, _I, ctypes.POINTER(_I)],
+    "soa_multi_half_sweep_grid": [_I, _I, _I, ctypes.POINTER(_I)],
+    "soa_multi_half_sweep_clusters": [_I, _I, _I, ctypes.POINTER(_I)],
     "soa_small_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "soa_geo_transfer": [_P] * 4 + [_I] * 6 + [_P],
     "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
@@ -55,7 +53,7 @@ _ROLLED_SIGNATURES = {
     "rolled_transfer": [_P] * 4 + [_I] * 6 + [_P],
     "rolled_dense_apply": [_P] * 3 + [_I, _P],
 }
-# Shared memory per CTA (TC = 32 cells): K5 and K7 stage 5*B*TC floats; K1
+# Shared memory per CTA (TC = 32 cells): K5 stages 5*B*TC floats; K1 and K7
 # 4*B*TC of neighbor fields and B*TC of t = rhs - off, which the cluster's
 # CTAs complete in place, so 5*B*TC too; K6 (5*Bu + Np)*TC.  The launches
 # stay under the 48 KB a kernel gets without an opt-in attribute.
@@ -305,26 +303,34 @@ def dg_half_sweep(D, DG_diag, DG_Dinv, rhs, p, g, color, nh, periodic, base=None
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def coresident_ctas(B, bf16):
-    """How many CTAs of K7 for block size B fit on the card at once: the
-    largest grid a cooperative launch takes."""
+def multi_half_sweep_grid(B, C, bf16=False):
+    """K7's default launch geometry for B output modes over C cells per
+    color with float32 or bfloat16 blocks: (clusters, CTAs per cluster,
+    output modes per CTA, threads per CTA), K1's rule with one cluster per
+    cell tile, at most as many as the card holds at once."""
+    return _grid("soa_multi_half_sweep_grid", B, C, int(bf16))
+
+
+def resident_clusters(B, C, bf16=False):
+    """How many of K7's clusters for (B, C) the card holds at once: the
+    largest grid its launcher takes."""
     n = ctypes.c_int()
-    code = library().soa_multi_half_sweep_ctas(int(B), int(bf16), ctypes.byref(n))
+    code = library().soa_multi_half_sweep_clusters(int(B), int(C), int(bf16),
+                                                   ctypes.byref(n))
     if code != 0:
-        raise RuntimeError(f"soa_multi_half_sweep_ctas failed: CUDA error {code} "
+        raise RuntimeError(f"soa_multi_half_sweep_clusters failed: CUDA error {code} "
                            f"({library().soa_error_string(code).decode()})")
     return n.value
 
 
 def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
-                     ctas=None):
+                     clusters=None):
     """K7; see ``ops.stream.multi_half_sweep``.  ``blocks`` (2, 5, B, B, C)
     (slots 1..4 read) and ``Dinv`` (2, B, B, C) are float32 or bfloat16 and
     may be strided per color (``Dinv`` may be slot 0 of ``blocks``); ``u``
-    None is a zero start.  ``ctas``: the grid (default: one CTA per 32-cell
-    tile, at most the co-resident count); a grid that cannot be co-resident
-    raises."""
+    None is a zero start.  ``clusters``: the grid in clusters of
+    ``multi_half_sweep_grid``'s size (default: one per 32-cell tile, at most
+    the resident count); a grid the card cannot hold at once raises."""
     _check(rhs, *_opt(u, base))
     _, _, B, _, C = blocks.shape
     for name, t, inner in (("blocks", blocks, (B * B * C, B * C, C, 1)),
@@ -345,19 +351,21 @@ def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
     if B > _MAX_SMEM_B:
         raise ValueError(f"multi_half_sweep: B={B} exceeds the kernel's "
                          f"shared-memory tile (B <= {_MAX_SMEM_B})")
-    bf16 = blocks.dtype == torch.bfloat16
-    if ctas is None:
-        ctas = min(-(-C // _TC), coresident_ctas(B, bf16))
+    if clusters is not None and clusters < 1:
+        raise ValueError(f"multi_half_sweep: a grid of {clusters} clusters")
     out = torch.empty_like(rhs)
     _launch("soa_multi_half_sweep", blocks.data_ptr(), Dinv.data_ptr(),
             blocks.stride(0), Dinv.stride(0), rhs.data_ptr(), _ptr(u), _ptr(base),
-            out.data_ptr(), int(n_half), B, C, int(nh), int(periodic), int(bf16),
-            int(ctas))
+            out.data_ptr(), int(n_half), B, C, int(nh), int(periodic),
+            int(blocks.dtype == torch.bfloat16), int(clusters or 0))
     return out
 
 
-# R1 and R2 stage at most 5 * B floats of shared memory per CTA
+# R2 stages 5 * B floats of shared memory per CTA; R1 a cell's blocks and
+# Dinv, its fields, rhs, base and t (5 B^2 + 7 B floats and an mbarrier),
+# past 48 KB with the kernel's opt-in, up to the 227 KB a CTA can have
 _MAX_ROLLED_B = _SMEM_FLOATS // 5
+_R1_SMEM_BYTES = 232448
 # R3: a CTA takes at most XFER_THREADS * XFER_OUTS outputs (rolled_kernels.cu)
 _XFER_OUTPUTS = 256 * 8
 
@@ -368,9 +376,6 @@ def _rolled_level(name, blocks, *vectors):
     nj, ni, _, B, _ = blocks.shape
     if blocks.shape != (nj, ni, 5, B, B) or any(v.shape != (nj, ni, B) for v in vectors):
         raise ValueError(f"{name}: inconsistent rolled shapes")
-    if B > _MAX_ROLLED_B:
-        raise ValueError(f"{name}: B={B} exceeds the kernel's shared-memory "
-                         f"tile (B <= {_MAX_ROLLED_B})")
     return nj, ni, B
 
 
@@ -380,6 +385,9 @@ def rolled_half_sweep(blocks, Dinv, rhs, u, color, base=None):
     nj, ni, B = _rolled_level("rolled_half_sweep", blocks, rhs, u, *_opt(base))
     if Dinv.shape != (nj, ni, B, B):
         raise ValueError("rolled_half_sweep: inconsistent rolled shapes")
+    if 16 + (5 * B * B + 7 * B) * 4 > _R1_SMEM_BYTES:
+        raise ValueError(f"rolled_half_sweep: B={B} exceeds the kernel's shared-memory "
+                         "copy of a cell's blocks")
     out = torch.empty_like(u)
     _launch("rolled_half_sweep", blocks.data_ptr(), Dinv.data_ptr(), rhs.data_ptr(),
             u.data_ptr(), _ptr(base), out.data_ptr(), int(color), nj, ni, B,
@@ -391,6 +399,9 @@ def rolled_stencil_apply(blocks, x, base=None, sign=1.0):
     """R2; see ``ops.vcycle.stencil_apply``."""
     _check(blocks, x, *_opt(base))
     nj, ni, B = _rolled_level("rolled_stencil_apply", blocks, x, *_opt(base))
+    if B > _MAX_ROLLED_B:
+        raise ValueError(f"rolled_stencil_apply: B={B} exceeds the kernel's "
+                         f"shared-memory tile (B <= {_MAX_ROLLED_B})")
     out = torch.empty_like(x)
     _launch("rolled_stencil_apply", blocks.data_ptr(), x.data_ptr(), _ptr(base),
             out.data_ptr(), nj, ni, B, float(sign), int(base is not None))

@@ -8,9 +8,10 @@ cycle holds every operand in VMEM.  Here every kernel reads device memory
 anyway, so the hybrid keeps what the TPU design buys on this card:
 
     multi_half_sweep  K7  all n half-sweeps of one smoother application in
-                          ONE cooperative launch (StreamedLevel.half_sweeps,
+                          ONE launch (StreamedLevel.half_sweeps,
                           pallas_stream.py:315): ~2 launches instead of 12 K1
-                          on the finest level of a 64x64 p5 V-cycle
+                          on the finest level of a 64x64 p5 V-cycle, each
+                          half-sweep K1's cluster body on K1's grid
     block storage         bfloat16 sweep blocks (and optionally residual
                           blocks), upconverted per MAC: half the bytes of the
                           finest level's sweeps
@@ -57,18 +58,19 @@ def multi_half_sweep_plain(lv, blocks, Dinv, rhs, u, n_half, base=None):
     return out if base is None else base + out
 
 
-def multi_half_sweep(lv, blocks, Dinv, rhs, u, n_half, base=None, ctas=None):
+def multi_half_sweep(lv, blocks, Dinv, rhs, u, n_half, base=None, clusters=None):
     """K7: ``n_half`` red-black half-sweeps (colors 0, 1, 0, ...)
     ``u_c <- Dinv_c (rhs_c - sum_s blocks_c[s] nbr_s(u_{1-c}))`` from ``u``
-    (None: zero) in one cooperative launch; returns the new (2, B, C), plus
-    ``base`` when given.  ``blocks`` (2, 5, B, B, C) (slots 1..4 read) and
-    ``Dinv`` (2, B, B, C) are float32 or bfloat16, upconverted per MAC;
-    ``lv`` gives the lattice (masks, nh, periodic).  ``ctas``: the grid on
-    the card (default one CTA per 32 cells, at most the co-resident count)."""
+    (None: zero) in one launch; returns the new (2, B, C), plus ``base`` when
+    given.  ``blocks`` (2, 5, B, B, C) (slots 1..4 read) and ``Dinv``
+    (2, B, B, C) are float32 or bfloat16, upconverted per MAC; ``lv`` gives
+    the lattice (masks, nh, periodic).  ``clusters``: the grid on the card in
+    thread-block clusters (default one per 32 cells, at most the resident
+    count)."""
     if not rhs.is_cuda:
         return multi_half_sweep_plain(lv, blocks, Dinv, rhs, u, n_half, base)
     out = _kernels.multi_half_sweep(blocks, Dinv, rhs, u, n_half, lv.nh, lv.periodic,
-                                    base, ctas)
+                                    base, clusters)
     multi_half_sweep.launches += 1
     return out
 

@@ -69,6 +69,8 @@ def test_entry_points_match_bindings():
     """Every ctypes signature names an extern "C" function of its kernel
     source with the same number of arguments, and the sources export no
     other entry point."""
+    assert {"soa_multi_half_sweep_grid", "soa_multi_half_sweep_clusters"} \
+        <= set(_kernels._SIGNATURES)
     for path, prefix, signatures in (
             (_kernels.SOURCE, "soa", _kernels._SIGNATURES),
             (_kernels.ROLLED_SOURCE, "rolled", _kernels._ROLLED_SIGNATURES)):
@@ -355,8 +357,21 @@ def test_stokes_cycle_and_solve_on_the_card(cuda, tmp_path, monkeypatch):
 
 
 # (B, Nj, Ni): the 64x64 p5 finest level (64 tiles of 32 cells), a 4x4 p3
-# level (one tile), a 16x16 p2 level (4 tiles) and a p1 level
-SWEEP_SHAPES = [(36, 64, 64), (16, 4, 4), (9, 16, 16), (4, 8, 8)]
+# level (one tile), a 16x16 p2 level (4 tiles), a p1 level, the 32x32 Stokes
+# finest A blocks (B 18, 16 tiles) and the 8x8 Stokes finest (B 18, one tile),
+# an 8x8 p5 level (one tile, a cluster of many CTAs) and B 5 (the body for
+# any B) on a ragged tile
+SWEEP_SHAPES = [(36, 64, 64), (16, 4, 4), (9, 16, 16), (4, 8, 8), (18, 32, 32),
+                (18, 8, 8), (36, 8, 8), (5, 6, 10)]
+
+
+def _sweep_operands(lv, bf16):
+    """K7's (blocks, Dinv) as the streamed level holds them: the float32 SoA
+    blocks and Dinv, or one bfloat16 [Dinv, iL, iR, jL, jR] tensor."""
+    if not bf16:
+        return lv.blocks, lv.Dinv
+    S = torch.cat([lv.Dinv[:, None], lv.blocks[:, 1:]], dim=1).to(torch.bfloat16)
+    return S, S[:, 0]
 
 
 @pytest.mark.cuda
@@ -365,38 +380,95 @@ SWEEP_SHAPES = [(36, 64, 64), (16, 4, 4), (9, 16, 16), (4, 8, 8)]
 @pytest.mark.parametrize("B, nj, ni", SWEEP_SHAPES)
 def test_multi_half_sweep_kernel(cuda, B, nj, ni, periodic, bf16):
     """K7 against its plain version for n_half 2/4/8, from u and from zero,
-    with and without base, on the default grid and on grids of 1 and 4 CTAs
-    (the persistent grid strides over the tiles)."""
+    with and without base, on the default grid (one cluster per cell tile),
+    on grids of 1 and 2 clusters (they stride over the tiles) and on as many
+    clusters as the card holds at once."""
     rng = np.random.default_rng(0)
     lv = _level(rng, B, nj, ni, periodic, cuda)
-    blocks, Dinv = lv.blocks, lv.Dinv
-    if bf16:
-        S = torch.cat([Dinv[:, None], blocks[:, 1:]], dim=1).to(torch.bfloat16)
-        blocks, Dinv = S, S[:, 0]
+    blocks, Dinv = _sweep_operands(lv, bf16)
     C = nj * ni // 2
     rhs, u, base = (_rand(rng, 2, B, C, device=cuda) for _ in range(3))
+    most = _kernels.resident_clusters(B, C, bf16)
     for n_half in (2, 4, 8):
         for start, b in ((u, None), (None, None), (None, base), (u, base)):
             args = (lv, blocks, Dinv, rhs, start, n_half, b)
-            for ctas in (None, 1, 4):
-                assert _close(stream.multi_half_sweep, args, dict(ctas=ctas)) < REL_TOL, \
-                    (n_half, start is None, b is None, ctas)
+            for clusters in (None, 1, 2, most):
+                assert _close(stream.multi_half_sweep, args,
+                              dict(clusters=clusters)) < REL_TOL, \
+                    (n_half, start is None, b is None, clusters)
+    assert _bitwise_stable(stream.multi_half_sweep, (lv, blocks, Dinv, rhs, u, 8, base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B, C", [(36, 2048), (18, 512), (18, 128), (36, 32), (16, 8),
+                                  (9, 128), (4, 32), (5, 30)])
+def test_multi_half_sweep_grid(cuda, B, C, bf16):
+    """K7's default geometry is K1's rule (32-cell tiles, clusters of at most
+    16 CTAs, one output per thread) with one cluster per tile where the card
+    holds them all at once (64x64 p5: 64 clusters of 3 CTAs of 12 rows; the
+    32x32 Stokes finest: 16 clusters of 9 CTAs)."""
+    clusters, size, rows, threads = _kernels.multi_half_sweep_grid(B, C, bf16)
+    most = _kernels.resident_clusters(B, C, bf16)
+    tiles = -(-C // 32)
+    assert clusters == min(tiles, most)
+    _check_sweep_grid(B, C, (tiles, size, rows, threads))
+    if (B, C) == (36, 2048):
+        assert (clusters, size, rows) == (64, 3, 12)
+    if (B, C) == (18, 512):
+        assert (clusters, size, rows) == (16, 9, 2)
 
 
 @pytest.mark.cuda
 def test_multi_half_sweep_grid_limits(cuda):
-    """The default grid at 64x64 p5 is one CTA per tile, 64 CTAs, and fits
-    the card; a grid larger than the co-resident count raises."""
-    most = _kernels.coresident_ctas(36, False)
+    """At 64x64 p5 the card holds one cluster per tile (64) at once; a grid
+    of the resident count runs, one more cluster raises, and so does a grid
+    of no cluster."""
+    most = _kernels.resident_clusters(36, 2048, False)
     assert most >= 64
     rng = np.random.default_rng(1)
     lv = _level(rng, 36, 64, 64, False, cuda)
     rhs = _rand(rng, 2, 36, 2048, device=cuda)
-    ok = stream.multi_half_sweep(lv, lv.blocks, lv.Dinv, rhs, None, 2, ctas=most)
+    ok = stream.multi_half_sweep(lv, lv.blocks, lv.Dinv, rhs, None, 2, clusters=most)
     torch.cuda.synchronize()
     assert torch.isfinite(ok).all()
     with pytest.raises(RuntimeError, match="soa_multi_half_sweep launch failed"):
-        stream.multi_half_sweep(lv, lv.blocks, lv.Dinv, rhs, None, 2, ctas=most + 1)
+        stream.multi_half_sweep(lv, lv.blocks, lv.Dinv, rhs, None, 2, clusters=most + 1)
+    with pytest.raises(ValueError, match="0 clusters"):
+        stream.multi_half_sweep(lv, lv.blocks, lv.Dinv, rhs, None, 2, clusters=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B, nj, ni, clusters", [(36, 64, 64, None), (36, 64, 64, 5),
+                                                 (18, 32, 32, None), (9, 16, 16, 1)])
+def test_multi_half_sweep_graph_matches_eager(cuda, B, nj, ni, clusters, bf16):
+    """K7 captured in a CUDA graph (twice in one graph, each launch with its
+    grid barriers) against the eager launches, bit for bit, over three
+    replays."""
+    rng = np.random.default_rng(3)
+    lv = _level(rng, B, nj, ni, False, cuda)
+    blocks, Dinv = _sweep_operands(lv, bf16)
+    C = nj * ni // 2
+    rhs, u, base = (_rand(rng, 2, B, C, device=cuda) for _ in range(3))
+
+    def run():
+        v = stream.multi_half_sweep(lv, blocks, Dinv, rhs, u, 8, clusters=clusters)
+        return stream.multi_half_sweep(lv, blocks, Dinv, rhs, None, 4, v, clusters=clusters)
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda
@@ -536,6 +608,52 @@ def test_rolled_half_sweep_and_stencil_kernels(cuda, B, nj, ni):
         assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color, base) < REL_TOL
     assert _rolled_close(vcycle.stencil_apply, lv, u) < REL_TOL
     assert _rolled_close(vcycle.stencil_apply, lv, u, rhs, -1.0) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("B", [36, 16, 9, 4])
+@pytest.mark.parametrize("nj, ni", [(3, 5), (4, 6), (5, 1), (1, 1), (2, 7)])
+def test_rolled_half_sweep_bodies(cuda, B, nj, ni, aligned):
+    """R1's two bodies: the bulk copy (B 36, 16, 4 with 16-byte aligned
+    blocks) and the 4-byte cp.async staging (B 9, and any B whose blocks
+    start off a 16-byte boundary: here one float past it), on odd Ni (the
+    colors' counts differ and the seam joins two cells of one color), a
+    one-wide column, a 1x1 level (color 1 has no cell) and an even grid;
+    both colors with and without a base; two launches give the same bits."""
+    rng = np.random.default_rng(4)
+    off = 0 if aligned else 1
+    flat = _rand(rng, nj * ni * 5 * B * B + off, device=cuda)
+    flat_d = _rand(rng, nj * ni * B * B + off, device=cuda)
+    masks = torch.as_tensor(np.stack([(np.add.outer(np.arange(nj), np.arange(ni)) % 2 == c)
+                                      for c in (0, 1)])[..., None],
+                            dtype=torch.float32, device=cuda)
+    lv = vcycle.RolledLevel(flat[off:].view(nj, ni, 5, B, B),
+                            flat_d[off:].view(nj, ni, B, B) / B, masks)
+    rhs, u, base = (_rand(rng, nj, ni, B, device=cuda) for _ in range(3))
+    for color in (0, 1):
+        assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color) < REL_TOL
+        assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color, base) < REL_TOL
+        assert _bitwise_stable(vcycle.half_sweep, (lv, rhs, u, color, base))
+
+
+@pytest.mark.cuda
+def test_rolled_half_sweep_on_the_ogrid_hierarchy(cuda):
+    """R1 on every level of the rolled cycle over the 4x4 O-grid p2
+    hierarchy (B 9 and 4, the seam's blocks nonzero), both colors, with and
+    without a base."""
+    import chip_smoke
+    dg = chip_smoke.hierarchy(chip_smoke.settings_for(
+        "CircleInCircle_4X4_nPoly2.xyz", 2, o_grid=True, p_levels="1,2"))
+    cyc = chip_smoke.rolled_cycle_of(dg)
+    rng = np.random.default_rng(6)
+    assert {lv.Dinv.shape[-1] for lv in cyc.levels} == {9, 4}
+    for lv in cyc.levels:
+        nj, ni, B = lv.Dinv.shape[:3]
+        rhs, u, base = (_rand(rng, nj, ni, B, device=cuda) for _ in range(3))
+        for color in (0, 1):
+            assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color) < REL_TOL
+            assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color, base) < REL_TOL
 
 
 @pytest.mark.cuda
