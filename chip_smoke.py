@@ -9,18 +9,18 @@ port builds, runs its CUDA kernels and solves on the card.
 ``--parent DIR`` takes the root of an earlier tree of the repository (for
 example ``git archive <commit> dgtpu_torch/csrc | tar -x -C DIR``): its
 ``dgtpu_torch/csrc`` sources are built beside this tree's, and wherever a
-phase times a graphed cycle (7, 12, 16, 21), K1 (7, 12), K5 (12, 16), K6
-(12, 16), K7 (16: float32 and bfloat16, eagerly and in a graph), R1 or R3
-(21) it also times the earlier tree's kernels on the same inputs, in turns
+phase times a graphed cycle (7, 12, 16, 21), K1 (7, 12), K4 (12: at every
+shape of the main paths), K5 (12, 16), K6 (12, 16), K7 (16: float32 and
+bfloat16, eagerly and in a graph), R1, R2 or R3 (21) it also times the earlier tree's kernels on the same inputs, in turns
 with this tree's (earlier, this, this, earlier), and prints whether the two
-agree bit for bit (K1, K5, K6, K7, R1 and the SoA, Stokes and hybrid cycles
-must).  An earlier K7 that counts its grid in CTAs gets its own default
-grid (``kernels_of``).
+agree bit for bit (K1, K4, K5, K6, K7, R1, R2 and the SoA, Stokes and
+hybrid cycles must).
 
 Phases (each prints one line; any failure raises, so the exit code is not 0):
   1. the card (name and power limit from nvidia-smi);
   2. build the CUDA kernels of dgtpu_torch/csrc/soa_kernels.cu and
-     rolled_kernels.cu, one nvcc each, started together;
+     rolled_kernels.cu, one nvcc each, started together; the launch floor
+     (an empty kernel, eagerly and as 200 launches in one graph);
   3. each Poisson kernel (K1 half-sweep, K5 stencil apply as the residual,
      K3 small GEMM, K4 geometric transfer) against its plain torch version
      on the same inputs, at the 8x8 p=5 hierarchy's shapes and on the 4x4
@@ -59,7 +59,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      versions, K5's A.uv + base, G.p and D.uv + base, K1 on A + base and K6
      with and without base at the 8x8 and 32x32 finest shapes eagerly and in
      a graph with the grid its launcher picks, and K3 at the 8x8 Stokes
-     shapes four ways;
+     shapes four ways; then K4 at every shape the main paths give it (the
+     geometric levels of the 8x8 and 64x64 Poisson and of the 8x8 and 32x32
+     Stokes cycles: restriction and prolongation + base, per component),
+     with its launches in one cycle, eagerly and in a graph, beside its
+     bound, launch grid and library call (torch.einsum on pre-gathered
+     inputs);
  13. the streamed kernels against their plain versions: K7 (float32 and
      bfloat16 blocks) and K5 with bfloat16 blocks at the 64x64 p=5 finest
      shapes, K6 (the streamed DG pass) and K5 at the 32x32 Stokes finest
@@ -97,16 +102,18 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
  21. marginal rolled cycle times (eager and graphed in turns) and launches
      per cycle at 8x8 and 64x64 beside the SoA cycle's, per-call times of
      R1-R4 beside their plain versions and bounds, each call first held to
-     its plain version (R1 at the finest level and at the B 16 and 4
-     levels, R3's per-cell P e + u, geometric restriction and prolongation
-     also in a graph), and R4 four ways beside torch.mv.
+     its plain version (R1 and R2 at the finest level and at the B 16 and
+     4 levels, R3's per-cell P e + u, geometric restriction and
+     prolongation, also in a graph), and R4 four ways beside torch.mv.
 Then the launch geometries at which K1, K6 and K7 were held to their plain
 versions (a timed case at any other raises).  The last lines are the
 kernels' JSON record (per kernel: launches on the main paths, worst error
 against the plain version, its time eagerly and in a graph of 200
 launches, the plain version's, the bound from bytes and operations, a
-PyTorch call's time both ways where one computes the same function,
-K1's, K5's, K6's and K7's launch grid), the nvidia-smi line and
+PyTorch call's time both ways where one computes the same function, and
+which call, K1's, K4's, K5's, K6's and K7's launch grid; K4's case is the
+shape with the most launches x time per cycle; beside the kernels, the
+launch floor), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA or without
 the rest of the repository.
 
@@ -308,43 +315,69 @@ def four_ways(label, kern, args, library, card):
     return times
 
 
+def launch_floor(card):
+    """The card's launch floor: one empty kernel timed eagerly and as 200
+    launches captured in one CUDA graph; prints and returns {"ms", "graph_ms"}."""
+    from dgtpu_torch.ops import _kernels
+    floor = {"ms": cuda_ms(_kernels.empty, 200), "graph_ms": graph_ms(_kernels.empty)}
+    print(f"[2] launch floor (an empty kernel, 1 CTA of 32 threads): {floor['ms']:.5f} ms "
+          f"eager, {floor['graph_ms']:.5f} ms in a graph ({card})", flush=True)
+    return floor
+
+
+def library_of(kern, args):
+    """(call, what it is) of one PyTorch call that computes the function of
+    ``kern`` at ``args`` (with an add where a base is folded in), on inputs
+    gathered before it (the gather not timed); None where there is none."""
+    import torch
+    from dgtpu_torch.ops import rolled, soa, vcycle
+    if kern is soa.small_gemm:           # P e + u: one baddbmm
+        return small_gemm_library(*args), "torch.baddbmm or torch.matmul"
+    if kern is vcycle.transfer:          # P e + u per cell, as one addmm
+        T, x, _, base = args
+        return (lambda: torch.addmm(base.flatten(0, 1), x.flatten(0, 1), T.T)), \
+            "torch.addmm"
+    if kern is vcycle.dense_apply:
+        W, x = args
+        return (lambda: torch.mv(W, x.reshape(-1))), "torch.mv"
+    if kern is soa.geo_transfer:
+        T4, x, dims_c, restrict, *base = args
+        ch_c, ch_q, par = (torch.as_tensor(a, device=x.device)
+                           for a in soa._geo_maps(*dims_c))
+        if restrict:
+            g = x[ch_c, :, ch_q]                      # (2, 4, Cc, B)
+            return (lambda: torch.einsum("kab,ckqb->caq", T4, g)), \
+                "torch.einsum, gather not timed"
+        g, Tp = x[par[0], :, par[1]], T4[par[2]]      # (2, Cf, B_c), (2, Cf, B, B_c)
+        if not base:
+            return (lambda: torch.einsum("cpab,cpb->cap", Tp, g)), \
+                "torch.einsum, gather not timed"
+        return (lambda: torch.einsum("cpab,cpb->cap", Tp, g).add_(base[0])), \
+            "torch.einsum + add_, gather not timed"
+    if kern is vcycle.stencil_apply:
+        lv, x, *rest = args
+        base, sign = (rest + [None, 1.0])[:2]
+        g = torch.stack((x, *rolled.neighbor_fields(x)), dim=2)    # (Nj, Ni, 5, B)
+        if base is None:
+            return (lambda: torch.einsum("jisab,jisb->jia", lv.blocks, g).mul_(sign)), \
+                "torch.einsum + mul_, gather not timed"
+        return (lambda: torch.add(base, torch.einsum("jisab,jisb->jia", lv.blocks, g),
+                                  alpha=sign)), "torch.einsum + add, gather not timed"
+    return None
+
+
 @contextlib.contextmanager
 def kernels_of(libs):
     """Inside the block the kernel wrappers launch from ``libs`` (soa,
-    rolled), the earlier tree's libraries; None leaves this tree's.  A
-    library from before K7's grid was counted in clusters (it has no
-    ``soa_multi_half_sweep_grid``) gets its own default grid, one CTA per
-    32-cell tile, at most the co-resident count."""
+    rolled), the earlier tree's libraries; None leaves this tree's."""
     from dgtpu_torch.ops import _kernels
-    saved = _kernels.library, _kernels.rolled_library, _kernels.multi_half_sweep
+    saved = _kernels.library, _kernels.rolled_library
     if libs is not None:
         _kernels.library, _kernels.rolled_library = (lambda: libs[0]), (lambda: libs[1])
-        if not hasattr(libs[0], "soa_multi_half_sweep_grid"):
-            _kernels.multi_half_sweep = cta_grid_k7(libs[0], saved[2])
     try:
         yield
     finally:
-        _kernels.library, _kernels.rolled_library, _kernels.multi_half_sweep = saved
-
-
-def cta_grid_k7(lib, launch):
-    """``launch`` (this tree's K7 launcher) with the grid an earlier K7
-    counted in CTAs: min(tiles, the co-resident CTAs) from ``lib``."""
-    import ctypes
-    ctas = lib.soa_multi_half_sweep_ctas
-    ctas.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    ctas.restype = ctypes.c_int
-
-    def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
-                         clusters=None):
-        import torch
-        B, C = blocks.shape[2], blocks.shape[4]
-        n = ctypes.c_int()
-        if ctas(B, int(blocks.dtype == torch.bfloat16), ctypes.byref(n)) != 0:
-            raise RuntimeError("the earlier tree's soa_multi_half_sweep_ctas failed")
-        return launch(blocks, Dinv, rhs, u, n_half, nh, periodic, base,
-                      clusters or min(-(-C // 32), n.value))
-    return multi_half_sweep
+        _kernels.library, _kernels.rolled_library = saved
 
 
 def parent_turns(label, fn, time_fn, card, bitwise):
@@ -473,12 +506,17 @@ def sweep_grid(kern, args, kw=None):
 
 
 def grid_record(kern, args, kw=None):
-    """The launch geometry of K1, K5, K6 or K7 at ``args`` as its launcher
-    picks it (a dict for the records), else None."""
+    """The launch geometry of K1, K4, K5, K6 or K7 at ``args`` as its
+    launcher picks it (a dict for the records), else None."""
     from dgtpu_torch.ops import _kernels, soa
     if kern is soa.stencil_apply:
         blk = args[1]
         *grid, threads = _kernels.stencil_apply_grid(blk.shape[3], blk.shape[4])
+        return {"grid": grid, "threads": threads}
+    if kern is soa.geo_transfer:
+        T4, x, (njc, nic), restrict = args[:4]
+        *grid, threads = _kernels.geo_transfer_grid(
+            T4.shape[1], njc * (nic // 2) * (1 if restrict else 4))
         return {"grid": grid, "threads": threads}
     if launched(kern) in cluster_kernels():
         return dict(zip(("tiles", "cluster", "rows", "threads"),
@@ -534,6 +572,64 @@ def kernel_times(label, kern, args, card, n_graph=200):
                              "to the plain version")
     parent_turns(f"{label} eager", run, lambda: cuda_ms(run, 200), card, True)
     parent_turns(f"{label} in a graph", run, lambda: graph_ms(run, n_graph), card, True)
+
+
+def k4_tally(cyc, rhs):
+    """{(T4 shape, coarse dims, restriction, with a base): launches} of K4 in
+    one eager cycle of ``cyc`` from zero."""
+    import torch
+    from dgtpu_torch.ops import _kernels
+    seen = {}
+    launch = _kernels.geo_transfer
+
+    def tally(T4, x, dims_c, restrict, base=None):
+        key = (tuple(T4.shape), tuple(dims_c), bool(restrict), base is not None)
+        seen[key] = seen.get(key, 0) + 1
+        return launch(T4, x, dims_c, restrict, base)
+    _kernels.geo_transfer = tally
+    try:
+        cyc(rhs, torch.zeros_like(rhs))
+        torch.cuda.synchronize()
+    finally:
+        _kernels.geo_transfer = launch
+    return seen
+
+
+def geo_transfer_table(configs, card):
+    """K4 at every shape the main paths give it: for each (name, cycle, rhs,
+    cases) in ``configs``, each K4 case of ``cases`` with its launches in one
+    cycle, eagerly and in a graph of 200 launches, its bound, launch grid and
+    library call both ways (with ``--parent``: the earlier tree's K4 both
+    ways in turns, held to this tree's bit for bit); prints a line each.
+    Returns the rows, with (args, ms, graph ms) and the launches per cycle."""
+    from dgtpu_torch.ops import soa
+    rows = []
+    for name, cyc, rhs, cases in configs:
+        per_cycle = k4_tally(cyc, rhs)
+        for kern, args in cases:
+            if kern is not soa.geo_transfer:
+                continue
+            T4, x, dims_c, restrict, *base = args
+            key = (tuple(T4.shape), tuple(dims_c), bool(restrict), bool(base))
+            run = lambda: kern(*args)                   # noqa: E731
+            ms, g_ms = cuda_ms(run, 200), graph_ms(run)
+            b_ms, b_by = bound(kern, args)
+            lib, what = library_of(kern, args)
+            lib_ms, lib_g_ms = cuda_ms(lib, 200), graph_ms(lib)
+            c_out = dims_c[0] * (dims_c[1] // 2) * (1 if restrict else 4)
+            label = (f"[12] K4 {name} {'restriction' if restrict else 'prolongation'}"
+                     f"{' + base' if base else ''} {T4.shape[2]} -> {T4.shape[1]} modes, "
+                     f"coarse {dims_c[0]}x{dims_c[1]}, {c_out} output cells per color")
+            print(f"{label}: {per_cycle.get(key, 0)} launches per cycle; kernel "
+                  f"{ms:.5f} ms eager, {g_ms:.6f} ms in a graph, bound {b_ms:.7f} ms "
+                  f"({b_by}); {grid_text(grid_record(kern, args))}; library ({what}) "
+                  f"{lib_ms:.5f} ms eager, {lib_g_ms:.6f} ms in a graph ({card})",
+                  flush=True)
+            parent_turns(f"{label} eager", run, lambda: cuda_ms(run, 200), card, True)
+            parent_turns(f"{label} in a graph", run, lambda: graph_ms(run), card, True)
+            rows.append({"args": args, "ms": ms, "graph_ms": g_ms,
+                         "per_cycle": per_cycle.get(key, 0)})
+    return rows
 
 
 def solve_text(dg):
@@ -738,7 +834,7 @@ def marginal_ms(cyc, rhs, k=5):
 def stokes_phases(card, rng, worst):
     """Phases 8-12: the Stokes route.  Returns the launch counts of the 8x8
     CLI route and of the 32x32 route, {kernel: (args, ms, plain ms)} of K5
-    and K6 at the 8x8 finest shapes, and the 32x32 DGFEM."""
+    and K6 at the 8x8 finest shapes, and the 8x8 and 32x32 DGFEMs."""
     import numpy as np
     import torch
     import yaml
@@ -864,7 +960,7 @@ def stokes_phases(card, rng, worst):
                 ("K6 color 1 + base", ss.dg_half_sweep,
                  (lv, rand(2, Np, C), p, g, 1, rand(2, Np, C)))):
             kernel_times(f"[12] {what} at {name} Stokes finest shapes", kern, args, card)
-    return launches, launches32, stokes_ms, dg32
+    return launches, launches32, stokes_ms, flagship, dg32
 
 
 def all_kernels():
@@ -1510,6 +1606,8 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
             "R1 half-sweep on the B 4 level, color 1 + base": (vcycle.half_sweep,
                                                                (low, r4, u4, 1, r4)),
             "R2 residual": (vcycle.stencil_apply, (lv, u, r, -1.0)),
+            "R2 residual on the B 16 level": (vcycle.stencil_apply, (mid, u16, r16, -1.0)),
+            "R2 residual on the B 4 level": (vcycle.stencil_apply, (low, u4, r4, -1.0)),
             "R3 polynomial P e + u": (vcycle.transfer, (
                 cyc.P[top], rand(*cyc.levels[top].Dinv.shape[:3]), False, u)),
             "R3 finest geometric restriction": (vcycle.transfer, (
@@ -1526,17 +1624,18 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
             ms = cuda_ms(lambda: kern(*args), 200)
             p_ms = cuda_ms(lambda: plain_version(kern)(*args), 50)
             b_ms, b_by = bound(kern, args)
+            graphed = (vcycle.half_sweep, vcycle.stencil_apply, vcycle.transfer)
             in_graph = (f", {graph_ms(lambda: kern(*args)):.5f} ms in a graph"
-                        if kern in (vcycle.half_sweep, vcycle.transfer) else "")
+                        if kern in graphed else "")
             print(f"[21] {label} at {name} finest shapes: kernel {ms:.4f} ms{in_graph}, "
                   f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
                   f"{work(kern, args)[0] / 1e6:.3f} MB) ({card})", flush=True)
-            if kern in (vcycle.half_sweep, vcycle.transfer):
+            if kern in graphed:
                 run = lambda: kern(*args)              # noqa: E731
                 for how, time_fn in (("eager", lambda: cuda_ms(run, 200)),
                                      ("in a graph", lambda: graph_ms(run))):
                     parent_turns(f"[21] {label} at {name} finest shapes, {how}", run,
-                                 time_fn, card, kern is vcycle.half_sweep)
+                                 time_fn, card, kern is not vcycle.transfer)
             if name == "64x64 p5":
                 timed.setdefault(kern, (args, ms, p_ms))
             if kern is vcycle.dense_apply:
@@ -1601,6 +1700,7 @@ def main():
     print(f"[2] built {', '.join(os.path.relpath(f, REPO) for f in sources)} with nvcc "
           f"for sm_90a, one process each, in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    floor = launch_floor(card)
     if opts.profile:
         profile(card)
         print(card)
@@ -1744,8 +1844,24 @@ def main():
                   f"{' + base' if len(args) > 2 else ''} (8x8 p5)", soa.small_gemm, args,
                   small_gemm_library(*args), card)
 
-    stokes_launches, stokes_launches32, stokes_ms, dg32 = stokes_phases(card, rng, worst)
+    stokes_launches, stokes_launches32, stokes_ms, stokes8, dg32 = stokes_phases(
+        card, rng, worst)
     timed.update(stokes_ms)
+
+    # -- 12: K4 at every shape of the main paths -----------------------------
+    configs = []
+    for name, dg, cycle, cases in (
+            ("Poisson 8x8 p5", flagship, cycle_of, kernel_cases),
+            ("Poisson 64x64 p5", dg64, cycle_of, kernel_cases),
+            ("Stokes 8x8", stokes8, stokes_cycle_of, stokes_kernel_cases),
+            ("Stokes 32x32", dg32, stokes_cycle_of, stokes_kernel_cases)):
+        cyc = cycle(dg)
+        configs.append((name, cyc, dg.levels[-1].rhs.to(torch.float32), cases(cyc, rng)))
+    k4_rows = geo_transfer_table(configs, card)
+    # K4's record: its case with the most launches x time in a graph per cycle
+    top = max(k4_rows, key=lambda r: r["per_cycle"] * r["graph_ms"])
+    timed[soa.geo_transfer] = (top["args"], top["ms"], cuda_ms(
+        lambda: soa.geo_transfer_plain(*top["args"]), 200))
 
     # -- 13: the streamed kernels against their plain versions ---------------
     from dgtpu_torch.ops import stokes_stream as sst
@@ -1898,18 +2014,9 @@ def main():
         by_path = {p: c.get(kernel_name(kern), 0) for p, c in paths.items()}
         args, ms, plain_ms = timed[kern]
         b_ms, b_by = bound(kern, args)
-        library = None
-        if kern is soa.small_gemm:           # P e + u: one baddbmm
-            library = small_gemm_library(*args)
-        elif kern is vcycle.transfer:        # P e + u per cell, as one addmm
-            T, x, _, base = args
-            library = (lambda T=T, x=x, base=base: torch.addmm(
-                base.flatten(0, 1), x.flatten(0, 1), T.T))
-        elif kern is vcycle.dense_apply:
-            W, x = args
-            library = lambda W=W, x=x: torch.mv(W, x.reshape(-1))   # noqa: E731
-        library_ms = None if library is None else cuda_ms(library, 200)
-        library_graph_ms = None if library is None else graph_ms(library)
+        library = library_of(kern, args)
+        library_ms = None if library is None else cuda_ms(library[0], 200)
+        library_graph_ms = None if library is None else graph_ms(library[0])
         kernel_graph_ms = graph_ms(lambda: kern(*args),
                                    20 if kern is stream.multi_half_sweep else 200)
         source = _kernels.ROLLED_SOURCE if kern in vcycle.KERNELS else _kernels.SOURCE
@@ -1920,7 +2027,8 @@ def main():
                        "max_rel_err": worst[kern][1],
                        "ms": ms, "graph_ms": kernel_graph_ms, "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                       "library_graph_ms": library_graph_ms})
+                       "library_graph_ms": library_graph_ms,
+                       "library": None if library is None else library[1]})
         grid = grid_record(kern, args)
         if grid is not None:
             record[-1]["launch_grid"] = grid
@@ -1932,7 +2040,7 @@ def main():
           f"{ {kernel_name(k): sorted(g) for k, g in CHECKED_GRIDS.items()} }", flush=True)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": record}))
+    print(json.dumps({"kernels": record, "launch_floor": floor}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

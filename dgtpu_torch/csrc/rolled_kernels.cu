@@ -59,7 +59,7 @@
 
 namespace {
 
-constexpr int WARPS = 4;            // warps per CTA of R2 and R4: output rows in flight
+constexpr int WARPS = 4;            // warps per CTA of R4: output rows in flight
 constexpr int THREADS = 32 * WARPS;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -67,22 +67,13 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// sum_{g < groups} sum_{b < n} M[(g * rows + a) * n + b] * f[g * n + b]: output
-// row a of ``groups`` row-major (rows, n) matrices stacked at M, against the
-// ``groups`` vectors of n floats at f (shared memory).  The lanes of the
-// calling warp split the groups * n products; every lane returns the sum.
-__device__ __forceinline__ float rows_dot(const float* __restrict__ M, const float* f,
-                                          int groups, int rows, int n, int a, int lane) {
-    float acc = 0.f;
-    for (int t = lane; t < groups * n; t += 32) {
-        const int g = t / n;
-        acc = fmaf(__ldg(M + ((size_t)g * rows + a) * n + (t - g * n)), f[t], acc);
-    }
-    return warp_sum(acc);
-}
-
-// rows_dot's sum with M and f in shared memory and rows = n = B: the same
-// lane split and order of sums.  kB > 0: B known at compile time (the loop
+// sum_{g < groups} sum_{b < B} M[(g * B + a) * B + b] * f[g * B + b]: output
+// row a of ``groups`` row-major (B, B) matrices stacked at M, against the
+// ``groups`` vectors of B floats at f, both in shared memory.  The lanes of
+// the calling warp split the groups * B products (lane l takes t = l, l +
+// 32, ...; one fmaf chain each), then warp_sum; every lane returns the sum.
+// The first R1 and R2 read M through __ldg in the same order, so their
+// results are kept bit for bit.  kB > 0: B known at compile time (the loop
 // unrolled, the division by B a multiply); 0: any B.
 template <int kB>
 __device__ __forceinline__ float smem_rows_dot(const float* M, const float* f, int groups,
@@ -99,12 +90,16 @@ __device__ __forceinline__ float smem_rows_dot(const float* M, const float* f, i
 
 // Stage the fields slots 0..4 of cell (j, i) read into fld (5, B): slot 0
 // the cell's own vector, 1 / 2 its i-neighbors (circular), 3 / 4 its
-// j-neighbors (zero outside the grid) -- rolled.neighbor_fields.
+// j-neighbors (zero outside the grid) -- rolled.neighbor_fields; with a
+// ``base``, the cell's B elements of it after them (fld + 5 B).  One element
+// per thread where B allows, so every load is in flight at once.
 __device__ __forceinline__ void stage_fields(float* fld, const float* __restrict__ x,
-                                             int j, int i, int Nj, int Ni, int B) {
+                                             const float* __restrict__ base, int j, int i,
+                                             int Nj, int Ni, int B) {
     const int il = (i == 0) ? Ni - 1 : i - 1;
     const int ir = (i == Ni - 1) ? 0 : i + 1;
-    for (int t = threadIdx.x; t < 5 * B; t += blockDim.x) {
+    const size_t v0 = ((size_t)j * Ni + i) * B;
+    for (int t = threadIdx.x; t < (base ? 6 : 5) * B; t += blockDim.x) {
         const int s = t / B;
         const int b = t - s * B;
         int jj = j, ii = i;
@@ -112,7 +107,8 @@ __device__ __forceinline__ void stage_fields(float* fld, const float* __restrict
         else if (s == 2) ii = ir;
         else if (s == 3) jj = j - 1;
         else if (s == 4) jj = j + 1;
-        fld[t] = (jj < 0 || jj >= Nj) ? 0.f : x[((size_t)jj * Ni + ii) * B + b];
+        fld[t] = s == 5 ? base[v0 + b]
+               : (jj < 0 || jj >= Nj) ? 0.f : x[((size_t)jj * Ni + ii) * B + b];
     }
 }
 
@@ -139,9 +135,9 @@ __device__ __forceinline__ void stage_fields(float* fld, const float* __restrict
 //     while the other threads stage the four neighbor fields, rhs and base,
 //     and copy the other color's cells;
 //   - then each warp takes output rows a = warp, warp + warps, ... and
-//     reduces them from shared memory as before (rows_dot).  A CTA has 8
+//     reduces them from shared memory (smem_rows_dot).  A CTA has 8
 //     warps where the card holds every CTA of the launch at once that way,
-//     else 4, else 2, else whichever holds the most (r1_warps): on the small
+//     else 4, else 2, else whichever holds the most (cell_warps): on the small
 //     grids more warps shorten each CTA's row loop, on the large grids of
 //     small cells (B 4 and 16 at 64x64: 2,048 CTAs) smaller CTAs let the
 //     whole launch be resident in one wave.  (B 36 cells are bounded by
@@ -152,7 +148,7 @@ __device__ __forceinline__ void stage_fields(float* fld, const float* __restrict
 // cp.async copies instead; the launcher picks the body by that shape rule.
 // (Staging B 36 and 16 by cp.async as well ran 15% and 20% slower on an
 // H100, in a graph at 64x64, so the bulk copies stay where they can.)
-// The sums are rows_dot's, in the first R1's order, so the results are the
+// The sums are smem_rows_dot's, in the first R1's order, so the results are the
 // same bit for bit.
 constexpr int R1_WARPS = 8;   // warps per CTA at most
 
@@ -192,6 +188,32 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
         : "memory");
 }
 
+// An mbarrier in shared memory for one arrival a phase (one thread calls
+// it; the CTA's barrier before any wait makes it visible).
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The arrival of the current phase of ``bar``, which completes once
+// ``bytes`` have landed by the bulk copies issued after it.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of ``bar`` with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    unsigned done = 0;
+    while (!done)
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
 // kB > 0: B known at compile time; kW > 0: the CTA's warps, else blockDim.
 template <int kB, bool kBulk, int kW>
 __global__ void __launch_bounds__(32 * (kW > 0 ? kW : R1_WARPS))
@@ -220,12 +242,8 @@ half_sweep_kernel(const float* __restrict__ blocks, const float* __restrict__ di
         const float* src_d = dinv + cell * B * B;
         if constexpr (kBulk) {
             if (tid == 0) {
-                const unsigned bytes = 5u * B * B * sizeof(float);
-                asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                             ::"r"(smem_addr(bar)) : "memory");
-                asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-                asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                             ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+                mbar_init(bar);
+                mbar_expect(bar, 5u * B * B * sizeof(float));
                 bulk_copy(blk, src, 4u * B * B * sizeof(float), bar);
                 bulk_copy(dv, src_d, (unsigned)(B * B * sizeof(float)), bar);
             }
@@ -264,15 +282,7 @@ half_sweep_kernel(const float* __restrict__ blocks, const float* __restrict__ di
     if (!active) return;
     if constexpr (!kBulk) cp_async_wait_all();
     __syncthreads();
-    if constexpr (kBulk) {
-        unsigned done = 0;
-        while (!done)
-            asm volatile(
-                "{\n.reg .pred p;\n"
-                "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-                "selp.u32 %0, 1, 0, p;\n}\n"
-                : "=r"(done) : "r"(smem_addr(bar)) : "memory");
-    }
+    if constexpr (kBulk) mbar_wait(bar, 0);
     const int warp = tid >> 5, lane = tid & 31, warps = kW > 0 ? kW : nt >> 5;
     for (int a = warp; a < B; a += warps) {
         const float acc = smem_rows_dot<kB>(blk, fld, 4, a, B, lane);
@@ -287,33 +297,41 @@ half_sweep_kernel(const float* __restrict__ blocks, const float* __restrict__ di
 
 using R1Body = decltype(&half_sweep_kernel<0, true, 0>);
 
-// R1's body for B: the bulk copy or the 4-byte staging, B and the warps
-// compiled in for the port's levels (p5, p3, p2, p1).
+// R1's body with ``warps`` warps: the bulk copy or the 4-byte staging, B
+// and the warps compiled in for the port's levels (p5, p3, p2, p1).
 template <int kB, bool kBulk>
 R1Body r1_body_of(int warps) {
-    return warps == 8 ? &half_sweep_kernel<kB, kBulk, 8>
-         : warps == 4 ? &half_sweep_kernel<kB, kBulk, 4> : &half_sweep_kernel<kB, kBulk, 2>;
+    if constexpr (kB == 0) return &half_sweep_kernel<0, kBulk, 0>;
+    else
+        return warps == 8 ? &half_sweep_kernel<kB, kBulk, 8>
+             : warps == 4 ? &half_sweep_kernel<kB, kBulk, 4>
+                          : &half_sweep_kernel<kB, kBulk, 2>;
 }
 
-R1Body r1_body(int B, bool bulk, int warps) {
+// R1's bodies for B, by warps.
+R1Body (*r1_bodies(int B, bool bulk))(int) {
     if (bulk) {
-        if (B == 36) return r1_body_of<36, true>(warps);
-        if (B == 16) return r1_body_of<16, true>(warps);
-        if (B == 4) return r1_body_of<4, true>(warps);
-        return &half_sweep_kernel<0, true, 0>;
+        if (B == 36) return &r1_body_of<36, true>;
+        if (B == 16) return &r1_body_of<16, true>;
+        if (B == 4) return &r1_body_of<4, true>;
+        return &r1_body_of<0, true>;
     }
-    if (B == 9) return r1_body_of<9, false>(warps);
-    return &half_sweep_kernel<0, false, 0>;
+    if (B == 9) return &r1_body_of<9, false>;
+    return &r1_body_of<0, false>;
 }
 
-// R1's warps per CTA for ``n`` CTAs of ``smem`` bytes (the note above):
-// found once per (B, body, n) and kept, so only a first launch asks the
-// card.  Past 48 KB the body opts in to its shared memory first.
-cudaError_t r1_warps(int B, bool bulk, size_t smem, int n, int* warps) {
+// The warps per CTA of R1 and R2 for ``n`` CTAs of ``smem`` bytes, a cell
+// each (R1's note): the most of 8, 4 and 2 with which the card holds every
+// CTA of the launch at once, else whichever holds the most CTAs.
+// ``body_of(w)`` is the kernel with w warps.  Found once per (kernel, n,
+// smem) and kept, so only a first launch asks the card.  Past 48 KB the body
+// opts in to its shared memory first.
+template <typename Body>
+cudaError_t cell_warps(Body (*body_of)(int), size_t smem, int n, int* warps) {
     static std::mutex mu;
-    static std::map<std::tuple<int, bool, int>, int> found;
+    static std::map<std::tuple<const void*, int, size_t>, int> found;
     const std::lock_guard<std::mutex> lock(mu);
-    const auto key = std::make_tuple(B, bulk, n);
+    const auto key = std::make_tuple((const void*)body_of(R1_WARPS), n, smem);
     const auto it = found.find(key);
     if (it != found.end()) {
         *warps = it->second;
@@ -323,7 +341,7 @@ cudaError_t r1_warps(int B, bool bulk, size_t smem, int n, int* warps) {
     if (sms == 0) return cudaErrorNoDevice;
     int best = 0, best_ctas = -1;
     for (int w = R1_WARPS; w >= 2; w /= 2) {
-        const R1Body body = r1_body(B, bulk, w);
+        const Body body = body_of(w);
         if (smem > 48 * 1024) {
             const cudaError_t e = cudaFuncSetAttribute(
                 (const void*)body, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -349,24 +367,91 @@ cudaError_t r1_warps(int B, bool bulk, size_t smem, int n, int* warps) {
 }
 
 // R2: out[j, i] = (base[j, i] +) sign * sum_{s=0..4} A[j, i, s] nbr_s(x) over
-// all cells (slot 0 is the cell itself).
-__global__ void stencil_apply_kernel(const float* __restrict__ blocks,
-                                     const float* __restrict__ x,
-                                     const float* __restrict__ base,
-                                     float* __restrict__ out,
-                                     int Nj, int Ni, int B, float sign, int accumulate) {
-    extern __shared__ float fld[];   // (5, B)
+// all cells (slot 0 is the cell itself): rolled.matvec, and the residual
+// with base = rhs, sign = -1 (PallasVCycle._residual, pallas_vcycle.py:180-187).
+//
+// What bounds it: a call reads every cell's five blocks, 5 B^2 floats a cell
+// in one contiguous run at (cell * 5) B^2 (106 MB at 64x64 p5, bound 32.2
+// us).  The first R2 was the first R1's body: a CTA per cell of 4 warps that
+// staged only the fields, each warp reducing 9 of the 36 rows with its block
+// elements loaded through __ldg inside the chain, ~6 loads a lane in flight
+// (36% of the bound at 64x64).  Here it takes R1's cell (R1's note):
+//   - a CTA per cell; one thread bulk-copies the cell's five blocks, the one
+//     run of 5 B^2 floats, into shared memory (cp.async.bulk on an
+//     mbarrier), every byte of the cell in flight at once, while the other
+//     threads stage the five fields (i circular, j zero outside) and base;
+//   - then each warp reduces its output rows a = warp, warp + warps, ...
+//     from shared memory (smem_rows_dot: the first R2's lane split and
+//     order of sums, then sign *, then base +), so the results are the same
+//     bit for bit;
+//   - R1's shape rule and warps: the bulk copy where B^2 % 4 == 0 and the
+//     blocks are 16-byte aligned (B 36, 16 and 4), 4-byte cp.async
+//     otherwise (B 9: a 1,620-byte cell); 8, 4 or 2 warps, the most with
+//     which the whole launch is resident (cell_warps).
+// A persistent grid instead (each resident CTA walking cells k, k + grid, ...
+// with two shared buffers, the next cell's bulk copy issued before the
+// current one's rows) measured slower on an H100 in a graph: 41.5 against
+// 40.0 us at 64x64 p5 B 36, 9.5 against 7.6 at B 16 (PERF.md), so it is not
+// kept.
+
+// kB > 0: B known at compile time; kW > 0: the CTA's warps, else blockDim.
+template <int kB, bool kBulk, int kW>
+__global__ void __launch_bounds__(32 * (kW > 0 ? kW : R1_WARPS))
+stencil_apply_kernel(const float* __restrict__ blocks, const float* __restrict__ x,
+                     const float* __restrict__ base, float* __restrict__ out, int Nj,
+                     int Ni, int B_any, float sign, int accumulate) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int B = kB > 0 ? kB : B_any;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem);          // 16 bytes
+    float* blk = reinterpret_cast<float*>(smem + 16);          // (5, B, B)
+    float* fld = blk + 5 * B * B;                              // (5, B) and base (B)
+    const int tid = threadIdx.x, nt = blockDim.x;
     const int cell = blockIdx.x;
     const int j = cell / Ni, i = cell - j * Ni;
-    stage_fields(fld, x, j, i, Nj, Ni, B);
-    __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* blk = blocks + (size_t)cell * 5 * B * B;
-    const size_t v0 = (size_t)cell * B;
-    for (int a = warp; a < B; a += WARPS) {
-        const float y = sign * rows_dot(blk, fld, 5, B, B, a, lane);
-        if (lane == 0) out[v0 + a] = accumulate ? base[v0 + a] + y : y;
+    const float* src = blocks + (size_t)cell * 5 * B * B;
+    if constexpr (kBulk) {
+        if (tid == 0) {
+            mbar_init(bar);
+            mbar_expect(bar, 5u * B * B * sizeof(float));
+            bulk_copy(blk, src, 5u * B * B * sizeof(float), bar);
+        }
+    } else {
+        for (int e = tid; e < 5 * B * B; e += nt) cp_async4(blk + e, src + e);
     }
+    stage_fields(fld, x, accumulate ? base : nullptr, j, i, Nj, Ni, B);
+    if constexpr (!kBulk) cp_async_wait_all();
+    __syncthreads();
+    if constexpr (kBulk) mbar_wait(bar, 0);
+    const int warp = tid >> 5, lane = tid & 31, warps = kW > 0 ? kW : nt >> 5;
+    const size_t v0 = (size_t)cell * B;
+    for (int a = warp; a < B; a += warps) {
+        const float y = sign * smem_rows_dot<kB>(blk, fld, 5, a, B, lane);
+        if (lane == 0) out[v0 + a] = accumulate ? fld[5 * B + a] + y : y;
+    }
+}
+
+using R2Body = decltype(&stencil_apply_kernel<0, true, 0>);
+
+// R2's body with ``warps`` warps, as R1's (r1_body_of).
+template <int kB, bool kBulk>
+R2Body r2_body_of(int warps) {
+    if constexpr (kB == 0) return &stencil_apply_kernel<0, kBulk, 0>;
+    else
+        return warps == 8 ? &stencil_apply_kernel<kB, kBulk, 8>
+             : warps == 4 ? &stencil_apply_kernel<kB, kBulk, 4>
+                          : &stencil_apply_kernel<kB, kBulk, 2>;
+}
+
+// R2's bodies for B, by warps (R1's shape rule).
+R2Body (*r2_bodies(int B, bool bulk))(int) {
+    if (bulk) {
+        if (B == 36) return &r2_body_of<36, true>;
+        if (B == 16) return &r2_body_of<16, true>;
+        if (B == 4) return &r2_body_of<4, true>;
+        return &r2_body_of<0, true>;
+    }
+    if (B == 9) return &r2_body_of<9, false>;
+    return &r2_body_of<0, false>;
 }
 
 // R3: the inter-level transfers over the (njo, nio) output grid,
@@ -570,10 +655,11 @@ int rolled_half_sweep(const float* blocks, const float* dinv, const float* rhs,
     const size_t smem = 16 + (size_t)(5 * B * B + 7 * B) * sizeof(float);
     const bool bulk = (B * B) % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(dinv) % 16 == 0;
+    const auto body_of = r1_bodies(B, bulk);
     int warps = 0;
-    const cudaError_t e = r1_warps(B, bulk, smem, std::max(n_active, 1), &warps);
+    const cudaError_t e = cell_warps(body_of, smem, std::max(n_active, 1), &warps);
     if (e != cudaSuccess) return (int)e;
-    const R1Body kernel = r1_body(B, bulk, warps);
+    const R1Body kernel = body_of(warps);
     kernel<<<std::max(n_active, 1), 32 * warps, smem, stream>>>(
         blocks, dinv, rhs, u, base, out, color, Nj, Ni, B, accumulate, n_active, n_other);
     return (int)cudaGetLastError();
@@ -582,7 +668,15 @@ int rolled_half_sweep(const float* blocks, const float* dinv, const float* rhs,
 int rolled_stencil_apply(const float* blocks, const float* x, const float* base,
                          float* out, int Nj, int Ni, int B, float sign, int accumulate,
                          cudaStream_t stream) {
-    stencil_apply_kernel<<<Nj * Ni, THREADS, (size_t)5 * B * sizeof(float), stream>>>(
+    const int n = Nj * Ni;
+    const bool bulk = (B * B) % 4 == 0 && reinterpret_cast<uintptr_t>(blocks) % 16 == 0;
+    const size_t smem = 16 + (size_t)(5 * B * B + 6 * B) * sizeof(float);
+    const auto body_of = r2_bodies(B, bulk);
+    int warps = 0;
+    const cudaError_t e = cell_warps(body_of, smem, n, &warps);
+    if (e != cudaSuccess) return (int)e;
+    const R2Body kernel = body_of(warps);
+    kernel<<<n, 32 * warps, smem, stream>>>(
         blocks, x, base, out, Nj, Ni, B, sign, accumulate);
     return (int)cudaGetLastError();
 }

@@ -79,6 +79,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int TC = 32;  // cells per tile: one warp spans 32 consecutive cells
+constexpr int K5_MAX_ROWS = 16;   // K4's and K5's output modes (thread rows) per CTA at most
+constexpr int K5_MIN_WARPS = 4;   // warps that stage K5's fields at least
 
 // Block elements are stored as float or bfloat16 and upconverted per MAC,
 // as dgtpu's _mac does; state and accumulators are float.
@@ -236,58 +238,119 @@ __global__ void dense_rows_kernel(const float* __restrict__ W,
 // K4: the 2x2 geometric agglomeration between a fine level (2 njc, 2 nic)
 // and its coarse level (njc, nic), straight from the per-child matrices
 // T4 (4, B_out, B_in) (pallas_vcycle.py:132-140) and _packed_pos.  dgtpu
-// spells it as dense cross-lane tensors (_geo_tensors, pallas_soa.py:256-284),
-// quadratic in the cell count and nearly all zero; here restriction gathers
-// each coarse cell's four children and prolongation reads each fine cell's
-// one parent.  blockIdx.y is the output color.
+// spells it as dense cross-lane tensors (_geo_tensors, pallas_soa.py:256-284,
+// pallas_stokes.py:254), quadratic in the cell count and nearly all zero;
+// here restriction gathers each coarse cell's four children and
+// prolongation reads each fine cell's one parent:
 //   restrict: out (2, B_c, Cc) = sum_k R4[k] . x_fine[child k]
 //   prolong:  out (2, B, Cf)   = (base +) P4[k(p)] . x_coarse[parent(p)]
-__global__ void geo_transfer_kernel(const float* __restrict__ T4,
-                                    const float* __restrict__ x,
-                                    const float* __restrict__ base,
-                                    float* __restrict__ out,
-                                    int Bout, int Bin, int njc, int nic,
-                                    int restrict_, int accumulate) {
-    const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
+// Its callers are the geometric levels of both SoA cycles: Poisson B 4 (p1)
+// from 8 to 2,048 output cells per color, the Stokes velocity (B 8, the
+// block-diagonal of the two p1 components) and pressure (B 1) on 2 to 512
+// cells, most launches on the W-cycles' smallest levels.  The work is a few
+// KB (bound 1 ns), so a launch is bound by latency: the launch itself, then
+// one chain of 4 B_in (restriction) or B_in multiply-adds whose operands come
+// from L2.  The first K4 ran one CTA per 32-cell tile and color, each thread
+// walking the output modes a = ty, ty + 8, ... and loading T4 and x inside
+// each chain.  Here, as K5 does:
+//   - grid (cell tiles, 2 colors, output-mode groups), one output (cell,
+//     mode) per thread: thread (tx, ty) of group g takes cell tile * 32 + tx
+//     and mode g * rows + ty, by K5's rule (mode_grid: at least one CTA per
+//     SM wherever the modes allow);
+//   - each thread does its cell arithmetic (packed_pos) once and, for the
+//     B_in of the port's levels (8, 4, 1: compiled in), issues every load
+//     of its chain (4 B_in or B_in inputs, coalesced across the 32 lanes of
+//     a tile, and as many elements of T4) ahead of its multiply-adds (any
+//     other B_in loads by eights);
+//   - T4's rows are read through the read-only path as a warp-uniform
+//     broadcast (restriction: row (k, a) is the same for every lane;
+//     prolongation: k follows the fine row's parity, one or two rows a
+//     warp).  So no launch has staging or a barrier, and the small levels
+//     get the direct shape.
+// The sums keep the first K4's order (k = 0..3 outer, b = 0..B_in-1 inner,
+// one fmaf chain from 0, then base +), so the results are the same bit for
+// bit.  Measured against this body on an H100 in a graph (PERF.md):
+// T4's rows staged in shared memory behind a barrier, within 1% at the B 8
+// restriction and ~0.25 us slower elsewhere; the restriction's inputs
+// staged by cp.async, ~0.6 us slower; T4's rows read as float4, ~0.1 us
+// slower at the B 8 restriction; its lines prefetched into L1 first, ~0.25
+// us slower.  The B 8 restriction (64 loads a thread)
+// still takes ~0.6 us more than the prolongation (16): ptxas gives it 34
+// registers (-Xptxas -v), too few to hold its 64 loads in flight at once.
+// kBin > 0: B_in known at compile time; 0: any B_in.
+template <bool kRestrict, int kBin>
+__global__ void __launch_bounds__(TC * K5_MAX_ROWS)
+geo_transfer_kernel(const float* __restrict__ T4, const float* __restrict__ x,
+                    const float* __restrict__ base, float* __restrict__ out, int Bout,
+                    int Bin_any, int njc, int nic, int accumulate, int rows) {
+    constexpr int nk = kRestrict ? 4 : 1;
+    const int Bin = kBin > 0 ? kBin : Bin_any;
+    const int tx = threadIdx.x, ty = threadIdx.y;
     const int oc = blockIdx.y;
+    const int a = blockIdx.z * rows + ty;
     const int nhc = nic / 2, nhf = nic;
     const int Cc = njc * nhc, Cf = 2 * njc * nhf;
     const int q = blockIdx.x * TC + tx;
-    if (restrict_) {
-        if (q >= Cc) return;
+    const int C_in = kRestrict ? Cf : Cc, C_out = kRestrict ? Cc : Cf;
+    if (q >= C_out || a >= Bout) return;
+    const float* xk[nk];   // input lane of child k (restriction) or the parent
+    const float* Tk[nk];   // row a of the matrix that multiplies it
+    if constexpr (kRestrict) {
         const int jc = q / nhc, ipc = q - jc * nhc;
         const int ic = (oc == 0) ? 2 * ipc + (jc % 2) : 2 * ipc + 1 - (jc % 2);
-        int fc[4], fq[4];
-        for (int k = 0; k < 4; ++k)
-            packed_pos(2 * jc + (k >> 1), 2 * ic + (k & 1), nhf, &fc[k], &fq[k]);
-        for (int a = ty; a < Bout; a += ny) {
-            float acc = 0.f;
-            for (int k = 0; k < 4; ++k) {
-                const float* xf = x + (size_t)fc[k] * Bin * Cf + fq[k];
-                const float* Tk = T4 + ((size_t)k * Bout + a) * Bin;
-                for (int b = 0; b < Bin; ++b)
-                    acc = fmaf(Tk[b], xf[(size_t)b * Cf], acc);
-            }
-            out[(size_t)oc * Bout * Cc + (size_t)a * Cc + q] = acc;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            int fc, fq;
+            packed_pos(2 * jc + (k >> 1), 2 * ic + (k & 1), nhf, &fc, &fq);
+            xk[k] = x + (size_t)fc * Bin * C_in + fq;
+            Tk[k] = T4 + ((size_t)k * Bout + a) * Bin;
         }
     } else {
-        if (q >= Cf) return;
         const int jf = q / nhf, ipf = q - jf * nhf;
         const int i_f = (oc == 0) ? 2 * ipf + (jf % 2) : 2 * ipf + 1 - (jf % 2);
-        const int k = (jf % 2) * 2 + (i_f % 2);
         int pc, pq;
         packed_pos(jf / 2, i_f / 2, nhc, &pc, &pq);
-        const float* xc = x + (size_t)pc * Bin * Cc + pq;
-        for (int a = ty; a < Bout; a += ny) {
-            const float* Tk = T4 + ((size_t)k * Bout + a) * Bin;
-            float acc = 0.f;
-            for (int b = 0; b < Bin; ++b)
-                acc = fmaf(Tk[b], xc[(size_t)b * Cc], acc);
-            const size_t o = (size_t)oc * Bout * Cf + (size_t)a * Cf + q;
-            out[o] = accumulate ? base[o] + acc : acc;
+        xk[0] = x + (size_t)pc * Bin * C_in + pq;
+        Tk[0] = T4 + ((size_t)((jf % 2) * 2 + (i_f % 2)) * Bout + a) * Bin;
+    }
+    const size_t o = (size_t)oc * Bout * C_out + (size_t)a * C_out + q;
+    const float b0 = accumulate ? base[o] : 0.f;
+    float acc = 0.f;
+    if constexpr (kBin > 0) {
+        float t[nk][kBin], v[nk][kBin];
+#pragma unroll
+        for (int k = 0; k < nk; ++k)
+#pragma unroll
+            for (int b = 0; b < kBin; ++b) {
+                t[k][b] = __ldg(Tk[k] + b);
+                v[k][b] = __ldg(xk[k] + (size_t)b * C_in);
+            }
+#pragma unroll
+        for (int k = 0; k < nk; ++k)
+#pragma unroll
+            for (int b = 0; b < kBin; ++b) acc = fmaf(t[k][b], v[k][b], acc);
+    } else {
+#pragma unroll 1
+        for (int k = 0; k < nk; ++k) {
+            int b = 0;
+            for (; b + 8 <= Bin; b += 8) {
+                float t[8], v[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    t[u] = __ldg(Tk[k] + b + u);
+                    v[u] = __ldg(xk[k] + (size_t)(b + u) * C_in);
+                }
+#pragma unroll
+                for (int u = 0; u < 8; ++u) acc = fmaf(t[u], v[u], acc);
+            }
+            for (; b < Bin; ++b)
+                acc = fmaf(__ldg(Tk[k] + b), __ldg(xk[k] + (size_t)b * C_in), acc);
         }
     }
+    out[o] = accumulate ? b0 + acc : acc;
 }
+
+__global__ void empty_kernel() {}
 
 // K5: out_c = (base_c +) sign * (blk_c[0] x_c + sum_s blk_c[s] nbr_s(x_{1-c}))
 // for both colors, rectangular blocks (5, Bs, Bd, C) per color of storage
@@ -303,7 +366,7 @@ __global__ void geo_transfer_kernel(const float* __restrict__ T4,
 //   thread (tx, ty) of group g takes cell tile * 32 + tx and output mode
 //   a = g * rows + ty.  The warp stays along C, so every block read is one
 //   coalesced 128-byte (float32) or 64-byte (bfloat16) load.
-//   Rule (stencil_grid): with need = ceil(SMs / (2 tiles)) groups for one
+//   Rule (mode_grid): with need = ceil(SMs / (2 tiles)) groups for one
 //   CTA per SM, a group takes rows = min(K5_MAX_ROWS, max(1, Bd / need))
 //   output modes (rounded down), groups = ceil(Bd / rows), and then the
 //   modes are spread evenly, rows = ceil(Bd / groups).  So the grid has at
@@ -324,8 +387,6 @@ __global__ void geo_transfer_kernel(const float* __restrict__ T4,
 // body unrolled by 8).  The sums keep the old kernel's order (slot 0..4, b
 // 0..Bs-1, one fmaf chain per output), so the results are the same bit for
 // bit; the slot sum is not split across threads.
-constexpr int K5_MAX_ROWS = 16;   // output modes (thread rows) per CTA at most
-constexpr int K5_MIN_WARPS = 4;   // warps that stage the fields at least
 
 // Stage the fields a stencil row of ``color`` reads into shared memory fld
 // (5, B, TC) by asynchronous copies: slot 0 the color's own lattice at lane q
@@ -450,25 +511,26 @@ stencil_apply_kernel(const T* __restrict__ blocks, const float* __restrict__ x,
     out[o] = accumulate ? b0 + y : y;
 }
 
-// K5's launch geometry for Bd output modes over C cells per color (the rule
-// in the note above): grid (tiles, 2, groups), CTA (TC, warps), ``rows``
-// output modes per CTA.
-struct StencilGrid {
+// The launch geometry of K4 and K5 for ``modes`` output modes over C
+// output cells per color (the rule in K5's note): grid (tiles, 2, groups),
+// CTA (TC, warps), ``rows`` output modes per CTA, at least ``min_warps``
+// warps.
+struct ModeGrid {
     int tiles, groups, rows, warps;
 };
 
-cudaError_t stencil_grid(int Bd, int C, StencilGrid* g) {
+cudaError_t mode_grid(int modes, int C, int min_warps, ModeGrid* g) {
     const int sms = sm_count();
     if (sms == 0) return cudaErrorNoDevice;
-    if (Bd < 1 || C < 1) return cudaErrorInvalidValue;
+    if (modes < 1 || C < 1) return cudaErrorInvalidValue;
     const int tiles = (C + TC - 1) / TC;
     const int need = (sms + 2 * tiles - 1) / (2 * tiles);
-    const int rows = std::min(K5_MAX_ROWS, std::max(1, Bd / need));
-    const int groups = (Bd + rows - 1) / rows;
+    const int rows = std::min(K5_MAX_ROWS, std::max(1, modes / need));
+    const int groups = (modes + rows - 1) / rows;
     g->tiles = tiles;
-    g->rows = (Bd + groups - 1) / groups;
-    g->groups = (Bd + g->rows - 1) / g->rows;
-    g->warps = std::max(g->rows, K5_MIN_WARPS);
+    g->rows = (modes + groups - 1) / groups;
+    g->groups = (modes + g->rows - 1) / g->rows;
+    g->warps = std::max(g->rows, min_warps);
     return cudaSuccess;
 }
 
@@ -476,8 +538,8 @@ template <typename T>
 int launch_stencil_apply(const void* blocks, const float* x, const float* base,
                          float* out, int Bs, int Bd, int C, int nh, int periodic,
                          float sign, int accumulate, cudaStream_t stream) {
-    StencilGrid g;
-    cudaError_t e = stencil_grid(Bd, C, &g);
+    ModeGrid g;
+    cudaError_t e = mode_grid(Bd, C, K5_MIN_WARPS, &g);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(g.tiles, 2, g.groups), block(TC, g.warps);
     const size_t smem = (size_t)5 * Bs * TC * sizeof(float);
@@ -1057,8 +1119,6 @@ int grid_dims(cudaError_t e, const SweepGrid& g, int* dims) {
     return (int)e;
 }
 
-inline int mode_lanes(int B) { return B < 8 ? B : 8; }
-
 // K7's bodies: float32 or bfloat16 blocks, at the B of the streamed levels
 // (Poisson p5/p3/p2/p1, the Stokes momentum blocks) or any B.
 template <typename T>
@@ -1198,11 +1258,50 @@ int soa_small_gemm(const float* W, const float* x, const float* base, float* out
 int soa_geo_transfer(const float* T4, const float* x, const float* base, float* out,
                      int Bout, int Bin, int njc, int nic, int restrict_,
                      int accumulate, cudaStream_t stream) {
-    const int n_out = restrict_ ? njc * (nic / 2) : 2 * njc * nic;
-    dim3 block(TC, mode_lanes(Bout));
-    dim3 grid((n_out + TC - 1) / TC, 2);
-    geo_transfer_kernel<<<grid, block, 0, stream>>>(T4, x, base, out, Bout, Bin,
-                                                    njc, nic, restrict_, accumulate);
+    ModeGrid g;
+    const cudaError_t e =
+        mode_grid(Bout, restrict_ ? njc * (nic / 2) : 2 * njc * nic, 1, &g);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(g.tiles, 2, g.groups), block(TC, g.warps);
+#define K4_LAUNCH(r, n)                                                     \
+    geo_transfer_kernel<r, n><<<grid, block, 0, stream>>>(                  \
+        T4, x, base, out, Bout, Bin, njc, nic, accumulate, g.rows)
+#define K4_LAUNCH_BIN(r)                                                    \
+    switch (Bin) {  /* the Poisson p1, Stokes velocity and pressure levels */ \
+        case 8: K4_LAUNCH(r, 8); break;                                     \
+        case 4: K4_LAUNCH(r, 4); break;                                     \
+        case 1: K4_LAUNCH(r, 1); break;                                     \
+        default: K4_LAUNCH(r, 0); break;                                    \
+    }
+    if (restrict_) {
+        K4_LAUNCH_BIN(true)
+    } else {
+        K4_LAUNCH_BIN(false)
+    }
+#undef K4_LAUNCH_BIN
+#undef K4_LAUNCH
+    return (int)cudaGetLastError();
+}
+
+// K4's launch geometry for Bout output modes over C_out output cells per
+// color: dims = {grid x, grid y, grid z, threads per CTA}.
+int soa_geo_transfer_grid(int Bout, int C_out, int* dims) {
+    ModeGrid g;
+    const cudaError_t e = mode_grid(Bout, C_out, 1, &g);
+    if (e == cudaSuccess) {
+        dims[0] = g.tiles;
+        dims[1] = 2;
+        dims[2] = g.groups;
+        dims[3] = TC * g.warps;
+    }
+    return (int)e;
+}
+
+// An empty kernel: one launch of it is the card's launch floor, the least
+// time any launch of the cycles takes (chip_smoke.py times it eagerly and in
+// a graph).
+int soa_empty(cudaStream_t stream) {
+    empty_kernel<<<1, TC, 0, stream>>>();
     return (int)cudaGetLastError();
 }
 
@@ -1219,8 +1318,8 @@ int soa_stencil_apply(const void* blocks, const float* x, const float* base,
 // K5's launch geometry for Bd output modes over C cells per color:
 // dims = {grid x, grid y, grid z, threads per CTA}.
 int soa_stencil_apply_grid(int Bd, int C, int* dims) {
-    StencilGrid g;
-    const cudaError_t e = stencil_grid(Bd, C, &g);
+    ModeGrid g;
+    const cudaError_t e = mode_grid(Bd, C, K5_MIN_WARPS, &g);
     if (e == cudaSuccess) {
         dims[0] = g.tiles;
         dims[1] = 2;

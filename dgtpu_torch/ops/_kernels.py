@@ -42,6 +42,8 @@ _SIGNATURES = {
     "soa_multi_half_sweep_clusters": [_I, _I, _I, ctypes.POINTER(_I)],
     "soa_small_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "soa_geo_transfer": [_P] * 4 + [_I] * 6 + [_P],
+    "soa_geo_transfer_grid": [_I, _I, ctypes.POINTER(_I)],
+    "soa_empty": [_P],
     "soa_stencil_apply": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
     "soa_stencil_apply_grid": [_I, _I, ctypes.POINTER(_I)],
     "soa_dg_half_sweep": [_P] * 8 + [_I] * 7 + [_P],
@@ -263,6 +265,18 @@ def _grid(name, *shape):
     return tuple(dims)
 
 
+def geo_transfer_grid(Bout, C_out):
+    """K4's launch geometry for Bout output modes over C_out output cells per
+    color: (grid x, grid y, grid z, threads per CTA), as the launcher picks it
+    on this card (K5's rule)."""
+    return _grid("soa_geo_transfer_grid", Bout, C_out)
+
+
+def empty():
+    """One launch of an empty kernel: the card's launch floor."""
+    _launch("soa_empty")
+
+
 def stencil_apply_grid(Bd, C):
     """K5's launch geometry for Bd output modes over C cells per color:
     (grid x, grid y, grid z, threads per CTA), as the launcher picks it on
@@ -361,11 +375,13 @@ def multi_half_sweep(blocks, Dinv, rhs, u, n_half, nh, periodic, base=None,
     return out
 
 
-# R2 stages 5 * B floats of shared memory per CTA; R1 a cell's blocks and
-# Dinv, its fields, rhs, base and t (5 B^2 + 7 B floats and an mbarrier),
-# past 48 KB with the kernel's opt-in, up to the 227 KB a CTA can have
-_MAX_ROLLED_B = _SMEM_FLOATS // 5
-_R1_SMEM_BYTES = 232448
+# R1 and R2 copy a cell into shared memory: R1 its blocks and Dinv, fields,
+# rhs, base and t (5 B^2 + 7 B floats and an mbarrier), R2 its five blocks,
+# fields and base (5 B^2 + 6 B floats and an mbarrier), past 48 KB with the
+# kernel's opt-in, up to the 227 KB a CTA can have: B <= 107 (p <= 9)
+_CTA_SMEM_BYTES = 232448
+_MAX_ROLLED_B = max(B for B in range(1, 256)
+                    if 16 + (5 * B * B + 7 * B) * 4 <= _CTA_SMEM_BYTES)
 # R3: a CTA takes at most XFER_THREADS * XFER_OUTS outputs (rolled_kernels.cu)
 _XFER_OUTPUTS = 256 * 8
 
@@ -385,9 +401,9 @@ def rolled_half_sweep(blocks, Dinv, rhs, u, color, base=None):
     nj, ni, B = _rolled_level("rolled_half_sweep", blocks, rhs, u, *_opt(base))
     if Dinv.shape != (nj, ni, B, B):
         raise ValueError("rolled_half_sweep: inconsistent rolled shapes")
-    if 16 + (5 * B * B + 7 * B) * 4 > _R1_SMEM_BYTES:
+    if B > _MAX_ROLLED_B:
         raise ValueError(f"rolled_half_sweep: B={B} exceeds the kernel's shared-memory "
-                         "copy of a cell's blocks")
+                         f"copy of a cell's blocks (B <= {_MAX_ROLLED_B})")
     out = torch.empty_like(u)
     _launch("rolled_half_sweep", blocks.data_ptr(), Dinv.data_ptr(), rhs.data_ptr(),
             u.data_ptr(), _ptr(base), out.data_ptr(), int(color), nj, ni, B,
@@ -401,7 +417,7 @@ def rolled_stencil_apply(blocks, x, base=None, sign=1.0):
     nj, ni, B = _rolled_level("rolled_stencil_apply", blocks, x, *_opt(base))
     if B > _MAX_ROLLED_B:
         raise ValueError(f"rolled_stencil_apply: B={B} exceeds the kernel's "
-                         f"shared-memory tile (B <= {_MAX_ROLLED_B})")
+                         f"shared-memory copy of a cell's blocks (B <= {_MAX_ROLLED_B})")
     out = torch.empty_like(x)
     _launch("rolled_stencil_apply", blocks.data_ptr(), x.data_ptr(), _ptr(base),
             out.data_ptr(), nj, ni, B, float(sign), int(base is not None))

@@ -1,7 +1,9 @@
-"""What ``chip_smoke.py`` counts for K7 (``multi_half_sweep``) and R1
-(``rolled_half_sweep``) on the CPU: the bytes and operations of a call
-(``work``), K7's streaming floor (``stream_floor``), and the grid an earlier
-tree's K7 takes under ``--parent`` (``kernels_of``).
+"""What ``chip_smoke.py`` counts for K4 (``geo_transfer``), K7
+(``multi_half_sweep``), R1 (``rolled_half_sweep``) and R2
+(``rolled_stencil_apply``) on the CPU: the bytes and operations of a call
+(``work``), K7's streaming floor (``stream_floor``), the library calls K4
+and R2 are timed against (``library_of``), and the swap of the kernel
+libraries under ``--parent`` (``kernels_of``).
 
 The levels are the port's own: a ``StreamedLevel`` (float32 and bfloat16
 sweep blocks) and the levels of a ``RolledVCycle`` over the 4x4 p2
@@ -10,13 +12,15 @@ Each expected count is written out from the shapes, independently of
 ``chip_smoke.nbytes``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from dgtpu_torch.api import DGFEM
-from dgtpu_torch.ops import _kernels, rolled, stream, vcycle
+from dgtpu_torch.ops import _kernels, rolled, soa, stream, vcycle
 from dgtpu_torch.ops.stream import StreamedLevel
 from dgtpu_torch.ops.vcycle import RolledLevel, RolledVCycle
 
@@ -127,41 +131,105 @@ def test_k7_clusters_keyword_on_the_cpu(hierarchy):
     assert torch.equal(got, stream.multi_half_sweep_plain(*args))
 
 
-class _EarlierSoaLibrary:
-    """A stand-in for an earlier tree's SoA library whose K7 counts its grid
-    in CTAs: no ``soa_multi_half_sweep_grid``, and 40 co-resident CTAs."""
+@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
+def test_kernels_of_swaps_in_and_restores_both_libraries(raises):
+    """Under ``--parent`` every wrapper launches from the earlier tree's
+    libraries inside ``kernels_of``: ``_kernels.library`` and
+    ``rolled_library`` give them there, and this tree's loaders are back
+    after the block, also when it raises; None leaves this tree's."""
+    soa_lib, rolled_lib = object(), object()
+    ours = _kernels.library, _kernels.rolled_library
+    with pytest.raises(KeyError) if raises else contextlib.nullcontext():
+        with chip_smoke.kernels_of((soa_lib, rolled_lib)):
+            assert _kernels.library() is soa_lib
+            assert _kernels.rolled_library() is rolled_lib
+            with chip_smoke.kernels_of(None):
+                assert _kernels.library() is soa_lib
+            if raises:
+                raise KeyError("inside the block")
+    assert (_kernels.library, _kernels.rolled_library) == ours
 
-    def __init__(self):
-        self.asked = []
 
-        def ctas(B, bf16, n):
-            self.asked.append((B, bf16))
-            n._obj.value = 40
-            return 0
-
-        self.soa_multi_half_sweep_ctas = ctas
+def _rand(rng, *shape):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
 
 
-@pytest.mark.parametrize("C, clusters, want", [(2048, None, 40), (96, None, 3),
-                                               (2048, 7, 7)])
-def test_kernels_of_gives_an_earlier_k7_its_cta_grid(C, clusters, want):
-    """Under ``--parent`` an earlier K7 gets its own default grid, one CTA per
-    32-cell tile at most the co-resident count, through this tree's
-    launcher; an explicit grid passes through; this tree's launcher is
-    back after the block."""
-    lib = _EarlierSoaLibrary()
-    seen = []
-    ours = _kernels.multi_half_sweep
-    blocks = torch.empty(2, 5, 36, 36, C, dtype=torch.bfloat16, device="meta")
-    try:
-        _kernels.multi_half_sweep = lambda *a: seen.append(a[-1])
-        launcher = _kernels.multi_half_sweep
-        with chip_smoke.kernels_of((lib, object())):
-            assert _kernels.library() is lib
-            _kernels.multi_half_sweep(blocks, None, None, None, 8, 32, False, None,
-                                      clusters)
-        assert _kernels.multi_half_sweep is launcher
-        assert seen == [want]
-        assert lib.asked == [(36, 1)]
-    finally:
-        _kernels.multi_half_sweep = ours
+# (B_fine, B_coarse, coarse dims): K4's shapes on the main paths -- the
+# Poisson p1 levels (B 4: 8x8 -> 4x4, 64x64 -> 32x32), the Stokes velocity
+# (the block-diagonal of two p1 blocks, B 8) and pressure (B 1) levels
+# (8x8 -> 4x4, 4x4 -> 2x2) -- and a B 9 level on an odd coarse row count
+K4_SHAPES = [(4, 4, (4, 4)), (4, 4, (32, 32)), (8, 8, (4, 4)), (1, 1, (2, 2)),
+             (9, 4, (3, 2))]
+
+
+@pytest.mark.parametrize("mode", ["restrict", "prolong", "prolong_base"])
+@pytest.mark.parametrize("Bf, Bc, dims_c", K4_SHAPES)
+def test_k4_library_call_matches_plain(Bf, Bc, dims_c, mode):
+    """K4's library call (``chip_smoke.library_of``: one torch.einsum on the
+    pre-gathered children or parents, + base) computes the plain version's
+    function."""
+    rng = np.random.default_rng(0)
+    njc, nic = dims_c
+    Cc, Cf = njc * nic // 2, 2 * njc * nic
+    if mode == "restrict":
+        args = (_rand(rng, 4, Bc, Bf), _rand(rng, 2, Bf, Cf), dims_c, True)
+    else:
+        args = (_rand(rng, 4, Bf, Bc), _rand(rng, 2, Bc, Cc), dims_c, False) \
+            + ((_rand(rng, 2, Bf, Cf),) if mode == "prolong_base" else ())
+    call, what = chip_smoke.library_of(soa.geo_transfer, args)
+    assert "gather not timed" in what
+    torch.testing.assert_close(call(), soa.geo_transfer_plain(*args), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("nj, ni, B", [(3, 5, 4), (1, 4, 9), (4, 4, 16)])
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "matvec"])
+def test_r2_library_call_matches_plain(nj, ni, B, residual):
+    """R2's library call (one torch.einsum over the pre-gathered five fields,
+    then the add of base and sign, or the sign alone) computes the plain
+    version's function on odd, one-row and even grids."""
+    rng = np.random.default_rng(1)
+    lv = RolledLevel(_rand(rng, nj, ni, 5, B, B), _rand(rng, nj, ni, B, B),
+                     rolled.color_masks(nj, ni, torch.float32, "cpu"))
+    x, rhs = _rand(rng, nj, ni, B), _rand(rng, nj, ni, B)
+    args = (lv, x, rhs, -1.0) if residual else (lv, x)
+    call, what = chip_smoke.library_of(vcycle.stencil_apply, args)
+    assert what.endswith("gather not timed")
+    torch.testing.assert_close(call(), vcycle.stencil_apply_plain(*args), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("with_base", [False, True], ids=["no_base", "base"])
+@pytest.mark.parametrize("Bf, Bc, dims_c", K4_SHAPES[:4])
+def test_k4_work(Bf, Bc, dims_c, with_base):
+    """K4's bytes: T4, the input and base once, the output; its operations:
+    2 per multiply-add, 4 B_fine per restricted output, B_coarse per
+    prolonged one."""
+    rng = np.random.default_rng(2)
+    njc, nic = dims_c
+    Cc, Cf = njc * nic // 2, 2 * njc * nic
+    R = (_rand(rng, 4, Bc, Bf), _rand(rng, 2, Bf, Cf), dims_c, True)
+    assert chip_smoke.work(soa.geo_transfer, R) == (
+        4 * (4 * Bc * Bf + 2 * Bf * Cf + 2 * Bc * Cc), 2 * 2 * Cc * Bc * 4 * Bf)
+    P = (_rand(rng, 4, Bf, Bc), _rand(rng, 2, Bc, Cc), dims_c, False) \
+        + ((_rand(rng, 2, Bf, Cf),) if with_base else ())
+    assert chip_smoke.work(soa.geo_transfer, P) == (
+        4 * (4 * Bf * Bc + 2 * Bc * Cc + 2 * Bf * Cf * (2 if with_base else 1)),
+        2 * 2 * Cf * Bf * Bc)
+
+
+@pytest.mark.parametrize("with_base", [False, True], ids=["no_base", "base"])
+def test_r2_work_on_the_rolled_cycle(hierarchy, with_base):
+    """R2's bytes on every level of the rolled cycle over the 4x4 p2
+    hierarchy: every cell's five blocks, x and base once, the output; its
+    operations: 2 per multiply-add, 5 B^2 a cell."""
+    dg = hierarchy
+    cyc = RolledVCycle([l.op for l in dg.levels], dg.transfers, dg.transfer_types,
+                       dg.settings, [(l.Nj, l.Ni) for l in dg.levels], device="cpu")
+    for lv in cyc.levels:
+        nj, ni, B = lv.Dinv.shape[:3]
+        v = torch.zeros(nj, ni, B)
+        args = (lv, v, v, -1.0) if with_base else (lv, v)
+        vec = nj * ni * B * 4
+        assert chip_smoke.work(vcycle.stencil_apply, args) == (
+            nj * ni * 5 * B * B * 4 + vec * (2 + int(with_base)), 2 * 5 * B * B * nj * ni)

@@ -230,19 +230,63 @@ def test_small_gemm_kernel(cuda, M, K, N, batch, base, offset):
     assert _close(soa.small_gemm, tuple(args)) < REL_TOL
 
 
+# (B_fine, B_coarse, coarse dims): K4 at every shape of the main paths -- the
+# Poisson p1 levels of the 8x8 and 64x64 hierarchies (B 4, coarse 4x4 to
+# 32x32; 2x2 on the O-grid), the Stokes velocity (B 8, two p1 components)
+# and pressure (B 1) levels of the 8x8 and 32x32 hierarchies (coarse 2x2 to
+# 16x16) -- and the body for any B_in: B 9 (with B 18 -> 9 on an odd coarse
+# row count) and B 36 at 64x64 (16 thread rows a CTA), B 4 <-> 16
+GEO_SHAPES = [(4, 4, (4, 4)), (9, 9, (2, 4)), (4, 4, (32, 32)), (4, 4, (16, 16)),
+              (4, 4, (8, 8)), (4, 4, (2, 2)), (8, 8, (2, 2)), (8, 8, (4, 4)),
+              (8, 8, (8, 8)), (8, 8, (16, 16)), (1, 1, (2, 2)), (1, 1, (4, 4)),
+              (1, 1, (8, 8)), (1, 1, (16, 16)), (36, 36, (64, 64)), (18, 9, (3, 2)),
+              (4, 16, (1, 2))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bf, Bc, dims_c", [(4, 4, (4, 4)), (9, 9, (2, 4)),
-                                            (4, 4, (32, 32))])
+@pytest.mark.parametrize("Bf, Bc, dims_c", GEO_SHAPES)
 def test_geo_transfer_kernel(cuda, Bf, Bc, dims_c):
+    """K4 as restriction, prolongation and prolongation + base, at whatever
+    grid its launcher picks; two launches give the same bits."""
     rng = np.random.default_rng(0)
     njc, nic = dims_c
     Cc, Cf = njc * nic // 2, 2 * njc * nic
     R4, P4 = _rand(rng, 4, Bc, Bf, device=cuda), _rand(rng, 4, Bf, Bc, device=cuda)
-    assert _close(soa.geo_transfer, (R4, _rand(rng, 2, Bf, Cf, device=cuda),
-                                     dims_c, True)) < REL_TOL
-    assert _close(soa.geo_transfer, (P4, _rand(rng, 2, Bc, Cc, device=cuda),
-                                     dims_c, False,
-                                     _rand(rng, 2, Bf, Cf, device=cuda))) < REL_TOL
+    cases = [(R4, _rand(rng, 2, Bf, Cf, device=cuda), dims_c, True),
+             (P4, _rand(rng, 2, Bc, Cc, device=cuda), dims_c, False),
+             (P4, _rand(rng, 2, Bc, Cc, device=cuda), dims_c, False,
+              _rand(rng, 2, Bf, Cf, device=cuda))]
+    for args in cases:
+        assert _close(soa.geo_transfer, args) < REL_TOL
+        assert _bitwise_stable(soa.geo_transfer, args)
+
+
+def _mode_grid(modes, C, sms, min_warps):
+    """K4's and K5's rule (soa_kernels.cu, mode_grid): 32-cell tiles by 2
+    colors by groups of output modes, the groups needed for one CTA per SM,
+    at most 16 modes a CTA, spread evenly."""
+    tiles = -(-C // 32)
+    need = -(-sms // (2 * tiles))
+    rows = min(16, max(1, modes // need))
+    rows = -(-modes // -(-modes // rows))
+    return tiles, 2, -(-modes // rows), 32 * max(rows, min_warps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bout, C_out", [(4, 8), (4, 32), (4, 2048), (4, 512), (8, 2),
+                                         (8, 128), (8, 512), (1, 2), (1, 512), (36, 32),
+                                         (36, 8192), (16, 3)])
+def test_geo_transfer_grid(cuda, Bout, C_out):
+    """K4's launch geometry as its launcher picks it on the card: one output
+    per thread, no empty group, at least one CTA per SM wherever the modes
+    allow it (else one CTA per mode and tile)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = _kernels.geo_transfer_grid(Bout, C_out)
+    assert grid == _mode_grid(Bout, C_out, sms, 1)
+    tiles, colors, groups, threads = grid
+    rows = threads // 32
+    assert groups * rows >= Bout > (groups - 1) * rows
+    assert tiles * colors * groups >= min(sms, tiles * colors * Bout)
 
 
 @pytest.mark.cuda
@@ -654,6 +698,48 @@ def test_rolled_half_sweep_on_the_ogrid_hierarchy(cuda):
         for color in (0, 1):
             assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color) < REL_TOL
             assert _rolled_close(vcycle.half_sweep, lv, rhs, u, color, base) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("B", [36, 16, 9, 4])
+@pytest.mark.parametrize("nj, ni", [(3, 5), (1, 4), (5, 1), (1, 1), (2, 7), (64, 64)])
+def test_rolled_stencil_apply_bodies(cuda, B, nj, ni, aligned):
+    """R2's two bodies: the bulk copy (B 36, 16, 4 with 16-byte aligned
+    blocks) and the 4-byte cp.async staging (B 9, and any B whose blocks
+    start off a 16-byte boundary: here one float past it), on odd Ni, a
+    one-row grid, a one-wide column, a 1x1 level, an even grid and 64x64
+    (4,096 CTAs); random blocks in every slot, so the wrapped i-neighbors
+    count as on an O-grid.  The residual (sign -1 with base), the matvec and
+    sign +1 with base; two launches give the same bits."""
+    import chip_smoke
+    rng = np.random.default_rng(5)
+    off = 0 if aligned else 1
+    flat = _rand(rng, nj * ni * 5 * B * B + off, device=cuda)
+    lv = vcycle.RolledLevel(flat[off:].view(nj, ni, 5, B, B),
+                            _rand(rng, nj, ni, B, B, device=cuda), None)
+    x, base = (_rand(rng, nj, ni, B, device=cuda) for _ in range(2))
+    for args in ((lv, x, base, -1.0), (lv, x), (lv, x, base)):
+        assert _rolled_close(vcycle.stencil_apply, *args) < chip_smoke.ROLLED_REL_TOL
+    assert _bitwise_stable(vcycle.stencil_apply, (lv, x, base, -1.0))
+
+
+@pytest.mark.cuda
+def test_rolled_stencil_apply_on_the_ogrid_hierarchy(cuda):
+    """R2 as the residual and the matvec on every level of the rolled cycle
+    over the 4x4 O-grid p2 hierarchy (B 9 and 4, the seam's blocks
+    nonzero)."""
+    import chip_smoke
+    dg = chip_smoke.hierarchy(chip_smoke.settings_for(
+        "CircleInCircle_4X4_nPoly2.xyz", 2, o_grid=True, p_levels="1,2"))
+    cyc = chip_smoke.rolled_cycle_of(dg)
+    rng = np.random.default_rng(7)
+    for lv in cyc.levels:
+        nj, ni, B = lv.Dinv.shape[:3]
+        x, rhs = (_rand(rng, nj, ni, B, device=cuda) for _ in range(2))
+        assert _rolled_close(vcycle.stencil_apply, lv, x, rhs, -1.0) \
+            < chip_smoke.ROLLED_REL_TOL
+        assert _rolled_close(vcycle.stencil_apply, lv, x) < chip_smoke.ROLLED_REL_TOL
 
 
 @pytest.mark.cuda
