@@ -104,7 +104,20 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      R1-R4 beside their plain versions and bounds, each call first held to
      its plain version (R1 and R2 at the finest level and at the B 16 and
      4 levels, R3's per-cell P e + u, geometric restriction and
-     prolongation, also in a graph), and R4 four ways beside torch.mv.
+     prolongation, also in a graph), and R4 four ways beside torch.mv;
+ 22. the routes outside the mixed multigrid, float64 plain torch on the
+     card (no kernel launches), one line each with its iterations or
+     cycles, status, solve seconds and L1/L2: Stokes ``-d`` (8x8 local and
+     global order, 32x32 global: a dense 22,528-unknown LU),
+     ``-m`` in full precision at 8x8 (classical_exact and lsq splittings),
+     ``-s`` with distributive GS, the mixed -> full fallback (8x8, factors
+     8,4,2), ``-k`` GMRES with the multigrid preconditioner (8x8, 32x32)
+     and the Schur block-diagonal one (8x8), each held to phases 10/11's
+     L2(u, v, p);
+     Poisson 8x8 p5 ``-k`` (GMRES with block-diagonal, AMG and multigrid
+     preconditioners, CG with a symmetric cycle) held to phase 20's ``-d``
+     L2(u), ``-amg`` sa and rs held to dgtpu's route; the phase's wall
+     time.
 Then the launch geometries at which K1, K6 and K7 were held to their plain
 versions (a timed case at any other raises).  The last lines are the
 kernels' JSON record (per kernel: launches on the main paths, worst error
@@ -129,6 +142,7 @@ per call, bytes moved, GB/s).
 import contextlib
 import copy
 import json
+import logging
 import math
 import os
 import re
@@ -960,7 +974,7 @@ def stokes_phases(card, rng, worst):
                 ("K6 color 1 + base", ss.dg_half_sweep,
                  (lv, rand(2, Np, C), p, g, 1, rand(2, Np, C)))):
             kernel_times(f"[12] {what} at {name} Stokes finest shapes", kern, args, card)
-    return launches, launches32, stokes_ms, flagship, dg32
+    return launches, launches32, stokes_ms, flagship, dg32, dg8
 
 
 def all_kernels():
@@ -1431,8 +1445,9 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
     """Phases 17-21: the rolled cycle and the full-precision routes.
     ``ogrid``: the assembled 4x4 O-grid DGFEM; ``u_soa64``: phase 6's nodal
     solution of the 64x64 SoA route; ``soa_ms``: phase 7's marginal SoA cycle
-    times by configuration.  Returns the launch counts by path and
-    {kernel: (args, ms, plain ms)} at the 64x64 p5 shapes."""
+    times by configuration.  Returns the launch counts by path,
+    {kernel: (args, ms, plain ms)} at the 64x64 p5 shapes and phase 20's
+    ``-d`` L2(u)."""
     import torch
     from dgtpu_torch.__main__ import main as cli
     from dgtpu_torch.ops import soa, vcycle
@@ -1551,6 +1566,7 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
                 raise AssertionError(f"the full-precision {strategy} route missed its bars")
         dg = cli(["-d", "--silent"])
         torch.cuda.synchronize()
+        l2_direct = dg.L2_error_u
         rel = abs(dg.L2_error_u - l2_mixed) / l2_mixed
         print(f"[20] -d, 8x8 p5: residual {dg.residual:.3e} (L2), L2(u) "
               f"{dg.L2_error_u:.12e} (rel to the mixed route {rel:.2e}), solve "
@@ -1642,7 +1658,210 @@ def rolled_phases(card, rng, worst, ogrid, u_soa64, soa_ms):
                 W, x = args
                 four_ways(f"[21] R4 dense apply W {tuple(W.shape)} ({name})", kern, args,
                           lambda: torch.mv(W, x.reshape(-1)), card)
-    return paths, timed
+    return paths, timed, l2_direct
+
+
+# dgtpu's -amg at 8x8 p=5 (the shipped paramfile with solver.amg.variant sa
+# or rs): L2(u) and cycles, computed on a CPU with the JAX reference package:
+#   JAX_PLATFORMS=cpu python -c "from dgtpu.api import DGFEM; \
+#     from dgtpu.settings import Settings, load_params; p = load_params(); \
+#     p['solver']['amg']['variant'] = 'sa'; p['visualization']['export'] = False; \
+#     dg = DGFEM(settings=Settings(p), solve_pyamg=True); dg.solve(); \
+#     print(repr(dg.L2_error_u))"
+# and the cycles as len(info['residuals']) of dgtpu.solvers.amg.solve_amg on
+# the finest level.  Neither reaches -d's L2(u) (solve_amg's tolerance is a
+# fixed 1e-6): SA stops at its 1000-cycle cap 20x off, RS after 907 cycles
+# 7% off, so phase 22 holds -amg to dgtpu's route, not to -d.
+DGTPU_AMG_8X8_P5 = {"sa": (1.0857214233737187e-04, 1000),
+                    "rs": (5.484347202041433e-06, 907)}
+# phase 22's Krylov tolerance for Poisson, relative, on the preconditioned
+# residual: the block-diagonal and SA-AMG preconditioned GMRES reach the
+# discrete solution (L2(u) within 1e-10 of -d at 8x8 p5) only below ~1e-12.
+# Stokes takes RES_TOL: at 1e-13 the multigrid-preconditioned GMRES at 32x32
+# ends in NaN in its third restart, whose normal equations, solved by
+# Cholesky as JAX's batched GMRES solves them, are no longer positive
+# definite at the rounding floor (PERF.md section 7)
+KRYLOV_TOL = 1e-13
+
+
+class _Messages(logging.Handler):
+    """Collects the messages of the loggers it is added to."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def solver_route_phases(card, stokes_l2, l2_direct):
+    """Phase 22: the routes outside the mixed multigrid, float64 plain torch
+    on the card, each through the CLI with a temporary paramfile: Stokes
+    (p_u=2/p_p=1, ``stokes_params``) ``-d`` at 8x8 in local and global order
+    and at 32x32 in global order, ``-m`` in full precision at
+    8x8 with the classical_exact and lsq splittings, ``-s`` with
+    distributive GS (lsq), the mixed -> full fallback (8x8 with factors
+    8,4,2: a 1x1 level, so no Stokes SoA cycle; both multigrid routes to
+    the mixed route's 1e-10), ``-k`` GMRES (to 1e-10) with the
+    multigrid (DGS lsq W-cycle) preconditioner at 8x8 and 32x32 and
+    with the Schur block-diagonal one at 8x8; Poisson 8x8 p=5 (the shipped
+    paramfile) ``-k`` GMRES with the block-diagonal, AMG and multigrid
+    preconditioners, CG with a symmetric multigrid cycle (2/2 sweeps), all
+    to KRYLOV_TOL, and ``-amg`` with sa and rs.  ``stokes_l2``: {n: {var:
+    L2}} of the mixed Stokes routes at 8x8 and 32x32 (phases 10 and 11);
+    ``l2_direct``: phase 20's ``-d`` L2(u).  Every solution is held to them
+    within L2_REL_TOL, ``-amg`` to dgtpu's own route (DGTPU_AMG_8X8_P5: L2(u)
+    and cycles), ``-s`` to status 0.  One line per route; the phase's wall time last."""
+    import torch
+    import yaml
+    from dgtpu_torch.__main__ import main as cli
+    t_phase = time.perf_counter()
+
+    def run(tmp, name, argv, params, silent=True):
+        path = os.path.join(tmp, f"{name}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(params, f)
+        dg = cli(argv + ["--device", "cuda", "--paramfile", path]
+                 + (["--silent"] if silent else []))
+        torch.cuda.synchronize()
+        if dg.levels[-1].rhs.device.type != "cuda":
+            raise AssertionError(f"{name} left the device")
+        return dg
+
+    def krylov_status(dg):
+        """The true residual ||b - Au||_2 beside max(tol ||b||_2, atol), the
+        bound of the route's post-solve audit.  Informational, not a check:
+        the route stops on the preconditioned residual (JAX's rule), which
+        can leave the true one above the bound, and then the audit warns, as
+        dgtpu's does on the same case; the route is held to its L2 errors."""
+        ks = dg.settings.solver.krylov
+        rhs = dg.levels[-1].rhs
+        res = dg.residual * math.sqrt(rhs.numel())      # residual is size-normalized
+        bound = max(float(ks.tolerance) * float(torch.linalg.norm(rhs)),
+                    float(ks.absolute_tolerance))
+        side = "below" if res <= bound else "above"
+        return (f"||b - Au|| {res:.3e}, {side} the audit's bound {bound:.3e} "
+                "(informational: the route stops on the preconditioned residual)")
+
+    def report(label, dg, count, status, ref, vars_):
+        rel = {v: abs(getattr(dg, f"L2_error_{v}") - ref[v]) / ref[v] for v in vars_}
+        errors = ", ".join(f"L1({v}) {getattr(dg, f'L1_error_{v}'):.9e} L2({v}) "
+                           f"{getattr(dg, f'L2_error_{v}'):.9e}" for v in vars_)
+        print(f"[22] {label}: {count}, status {status}, solve {dg.solve_seconds:.3f} s; "
+              f"{errors} (L2 rel to the held value "
+              f"{ {v: float(f'{r:.2e}') for v, r in rel.items()} }) ({card})", flush=True)
+        if not all(r < L2_REL_TOL for r in rel.values()):
+            raise AssertionError(f"{label}: L2 errors off the held values: {rel}")
+
+    def stokes(n, **overrides):
+        params = stokes_params(n)
+        params["performance"]["precision"] = "full"
+        for path, value in overrides.items():
+            node = params
+            *keys, leaf = path.split(".")
+            for k in keys:
+                node = node[k]
+            node[leaf] = value
+        return params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- Stokes -d -------------------------------------------------------
+        for n, ordering in ((8, "local"), (8, "global"), (32, "global")):
+            dg = run(tmp, f"stokes_d_{n}_{ordering}", ["-d"],
+                     stokes(n, **{"solution.ordering": ordering}))
+            if not dg.residual < 1e-12:
+                raise AssertionError(f"Stokes -d {n}x{n}: residual {dg.residual:.3e}")
+            report(f"Stokes -d, {n}x{n}, {ordering} order "
+                   f"({dg.levels[-1].rhs.numel()} DOF)", dg, "dense LU",
+                   f"residual {dg.residual:.3e} (L2)", stokes_l2[n], "uvp")
+        # -- Stokes -m in full precision, to the mixed route's 1e-10 (at the
+        # shipped 1e-6 the solution sits up to ~4e-6 off in L2(p)) -----------
+        tight = {"solver.multigrid.tolerance": RES_TOL}
+        for splitting in ("classical_exact", "lsq"):
+            dg = run(tmp, f"stokes_m_{splitting}", ["-m"],
+                     stokes(8, **{"performance.dgs_splitting": splitting}, **tight))
+            tol = float(dg.settings.solver.multigrid.tolerance)
+            if dg.cycle_kind != "full precision" or not dg.solve_residual < tol:
+                raise AssertionError(f"Stokes -m full ({splitting}) missed its tolerance")
+            report(f"Stokes -m, precision full, DGS {splitting}, 8x8 W-cycles",
+                   dg, f"{dg.cycles} cycles", f"residual {dg.solve_residual:.3e} < {tol:g}",
+                   stokes_l2[8], "uvp")
+        # -- Stokes -s with distributive GS ----------------------------------
+        dg = run(tmp, "stokes_s", ["-s", "--smoother", "distributive_gauss_seidel"],
+                 stokes(8))
+        print(f"[22] Stokes -s distributive_gauss_seidel (lsq), 8x8: {dg.sweeps} sweeps, "
+              f"status {dg.smoother_status}, residual {dg.residuals[-1]:.3e} "
+              f"(normalized), solve {dg.solve_seconds:.3f} s; L1(u) {dg.L1_error_u:.9e} "
+              f"L2(u) {dg.L2_error_u:.9e} ({card})", flush=True)
+        if dg.smoother_status != 0:
+            raise AssertionError("the Stokes DGS smoother solve did not converge")
+        # -- the mixed -> full fallback --------------------------------------
+        seen = _Messages()
+        logger = logging.getLogger("dgtpu_torch.api")
+        logger.addHandler(seen)
+        try:
+            dg = run(tmp, "stokes_fallback", ["-m"], stokes(8, **{
+                "performance.precision": "mixed", "logging.loglevel": "WARNING",
+                "solver.multigrid.geometric coarsening.coarsening factors": "8,4,2"},
+                **tight), silent=False)
+        finally:
+            logger.removeHandler(seen)
+        logged = [m for m in seen.messages if m.endswith("running full precision")]
+        if not logged or dg.cycle_kind != "full precision":
+            raise AssertionError("the mixed Stokes route did not fall back to full "
+                                 f"precision: {seen.messages}")
+        report(f"Stokes -m, precision mixed, 8x8 with factors 8,4,2 "
+               f"({len(dg.levels)} levels down to 1x1), logged {logged[0]!r}",
+               dg, f"{dg.cycles} full-precision cycles",
+               f"residual {dg.solve_residual:.3e}", stokes_l2[8], "uvp")
+        # -- Stokes -k.  The Krylov routes stop on the preconditioned residual
+        # (JAX's rule, which dgtpu keeps): at the shipped tolerances (1e-8
+        # relative, 1e-5 absolute) they stop early, up to ~1e-5 off in L2
+        # (Schur GMRES 8x8) and further for Poisson (block-diagonal 1e-2,
+        # SA-AMG 12x in dgtpu itself), so phase 22 asks for 1e-10 (Stokes)
+        # and KRYLOV_TOL (Poisson) -------------------------------------------
+        for n, precond in ((8, "multigrid"), (32, "multigrid"),
+                           (8, "block_diagonal")):
+            dg = run(tmp, f"stokes_k_{n}_{precond}", ["-k"], stokes(n, **{
+                "solver.krylov.preconditioner": precond,
+                "solver.krylov.tolerance": RES_TOL,
+                "solver.krylov.absolute tolerance": 0.0}))
+            what = ("the multigrid preconditioner (DGS lsq W-cycle)"
+                    if precond == "multigrid" else "the Schur block-diagonal preconditioner")
+            report(f"Stokes -k GMRES({dg.settings.solver.krylov.restart}) with {what}, "
+                   f"{n}x{n}", dg, f"{dg.krylov_iterations} restarts", krylov_status(dg),
+                   stokes_l2[n], "uvp")
+        # -- Poisson 8x8 p5 -k and -amg --------------------------------------
+        sym = {f"solver.multigrid.{c}.post smoother.iterations": 2
+               for c in ("polynomial coarsening", "geometric coarsening")}
+        for method, precond, extra in (
+                ("gmres", "block_diagonal", {}), ("gmres", "amg", {}),
+                ("gmres", "multigrid", {}), ("cg", "multigrid", sym)):
+            path = write_paramfile(tmp, f"poisson_k_{method}_{precond}.yml", **{
+                "solver.krylov.method": method, "solver.krylov.preconditioner": precond,
+                "solver.krylov.tolerance": KRYLOV_TOL,
+                "solver.krylov.absolute tolerance": 0.0, **extra})
+            dg = cli(["-k", "--silent", "--device", "cuda", "--paramfile", path])
+            unit = "restarts" if method == "gmres" else "steps"
+            report(f"Poisson 8x8 p5 -k {method} with {precond}", dg,
+                   f"{dg.krylov_iterations} {unit}", krylov_status(dg),
+                   {"u": l2_direct}, "u")
+        for variant, (l2_ref, n_ref) in DGTPU_AMG_8X8_P5.items():
+            path = write_paramfile(tmp, f"poisson_amg_{variant}.yml",
+                                   **{"solver.amg.variant": variant})
+            dg = cli(["-amg", "--silent", "--device", "cuda", "--paramfile", path])
+            info = dg.amg_info
+            if info["cycles"] != n_ref:
+                raise AssertionError(f"-amg {variant}: {info['cycles']} cycles, dgtpu "
+                                     f"{n_ref}")
+            report(f"Poisson 8x8 p5 -amg {variant} (held to dgtpu's route: "
+                   f"{n_ref} cycles; L2(u) rel to -d {abs(dg.L2_error_u - l2_direct) / l2_direct:.2e})",
+                   dg, f"{info['cycles']} cycles",
+                   f"info {info['info']}, residual {info['residuals'][-1]:.3e} before "
+                   "the last cycle", {"u": l2_ref}, "u")
+    print(f"[22] the solver routes took {time.perf_counter() - t_phase:.1f} s of wall "
+          f"time ({card})", flush=True)
 
 
 def check_rolled(worst):
@@ -1844,7 +2063,7 @@ def main():
                   f"{' + base' if len(args) > 2 else ''} (8x8 p5)", soa.small_gemm, args,
                   small_gemm_library(*args), card)
 
-    stokes_launches, stokes_launches32, stokes_ms, stokes8, dg32 = stokes_phases(
+    stokes_launches, stokes_launches32, stokes_ms, stokes8, dg32, dg8 = stokes_phases(
         card, rng, worst)
     timed.update(stokes_ms)
 
@@ -1991,8 +2210,17 @@ def main():
             kernel_times(f"[16] {name} at {shapes} streamed finest shapes", kern, args,
                          card, 20 if kern is stream.multi_half_sweep else 200)
 
-    rolled_paths, rolled_ms = rolled_phases(card, rng, worst, ogrid, u_soa, soa_ms)
+    rolled_paths, rolled_ms, l2_direct = rolled_phases(card, rng, worst, ogrid, u_soa,
+                                                       soa_ms)
     timed.update(rolled_ms)
+
+    # -- 22: the routes outside the mixed multigrid (no kernel runs there) ----
+    reset_counts()
+    solver_route_phases(card, {n: {v: getattr(dg, f"L2_error_{v}") for v in "uvp"}
+                               for n, dg in ((8, dg8), (32, dg32))}, l2_direct)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 22 launched kernels: {launched}")
 
     paths = {"poisson_8x8": launches, "poisson_64x64_hybrid": launches64,
              "poisson_64x64_hybrid_bf16": launches64_bf16,

@@ -3,13 +3,16 @@
     python -m dgtpu_torch -m [--precision full|mixed] [--device cuda|cpu] [options]
     python -m dgtpu_torch -d
     python -m dgtpu_torch -s --smoother block_gauss_seidel
+    python -m dgtpu_torch -k
+    python -m dgtpu_torch -amg
 
-Ported for Poisson: the multigrid in full precision (the paramfile's
-default) and in mixed precision, the direct solve and the stand-alone
-smoother solve; for global-order Stokes with distributive-GS smoothing
-(``problem.type: Stokes`` in the paramfile) the mixed-precision multigrid.
-Any other solver or option raises NotImplementedError naming its ROADMAP
-item.
+Ported for Poisson and Stokes (``problem.type: Stokes`` in the paramfile,
+local or global ordering): the multigrid in full precision (the
+paramfile's default) and in mixed precision, the direct solve, the
+stand-alone smoother solve (``--smoother distributive_gauss_seidel`` for
+global-order Stokes), the Krylov solve and algebraic multigrid.  Any other
+solver or option (``-fvm``, ``-amp``, the check flags) raises
+NotImplementedError naming its ROADMAP item.
 """
 
 import argparse

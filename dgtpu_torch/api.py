@@ -1,21 +1,23 @@
-"""DGFEM orchestrator — the port of ``dgtpu/api.py``: for Poisson the
-multigrid (full and mixed precision), direct and smoother solves, for
-global-order Stokes with distributive-GS smoothing the mixed-precision
-multigrid.
+"""DGFEM orchestrator — the port of ``dgtpu/api.py``: for Poisson and
+Stokes (local or global ordering) the multigrid (full and mixed precision),
+direct, smoother, Krylov (``-k``) and algebraic multigrid (``-amg``) solves.
 
 Builds settings + manufactured solution, reads the grid, constructs the
 multigrid hierarchy (penalty / polynomial / geometric coarsening) with its
-transfers (a single level for the direct and smoother solves), assembles
-every level in float64 on the chosen device, solves, and post-processes:
-residual norms, the Stokes pressure mean shift, modal->nodal values, L1/L2
-MMS errors, VTK export and ``summary.txt`` in the reference's schema.  The
-mixed-precision route runs float32 cycles (SoA, streamed hybrid or rolled)
-inside float64 defect correction, optionally seeded by an FMG pass; Stokes
-retries with GMRES-wrapped cycles when the plain refinement stalls.
+transfers (a single level for the other solves, unless the Krylov solve is
+preconditioned by multigrid), assembles every level in float64 on the
+chosen device, solves, and post-processes: residual norms, the Stokes
+pressure mean shift, modal->nodal values, L1/L2 MMS errors, VTK export and
+``summary.txt`` in the reference's schema.  The mixed-precision route runs
+float32 cycles (SoA, streamed hybrid or rolled) inside float64 defect
+correction, optionally seeded by an FMG pass; Stokes retries with
+GMRES-wrapped cycles when the plain refinement stalls, and runs the
+full-precision multigrid where no Stokes cycle builds, as dgtpu does.  The
+full-precision, direct, smoother, Krylov and AMG routes run in float64
+plain torch on the same device.
 
 Every branch of dgtpu's orchestrator that this slice does not port raises
-NotImplementedError naming its ROADMAP item; nothing falls back to another
-route.
+NotImplementedError naming its ROADMAP item; nothing falls back to the CPU.
 """
 
 import math
@@ -31,18 +33,21 @@ from dgtpu_torch.mms import ManufacturedSolution
 from dgtpu_torch.models.poisson import assemble_poisson
 from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        StokesPolynomialTransfer, assemble_stokes,
+                                       distributive_gauss_seidel_solve,
                                        pressure_mean_shift,
                                        reorder_global_to_local)
 from dgtpu_torch.ops.graphs import CycleGraph
 from dgtpu_torch.ops.smoothers import element_colors
 from dgtpu_torch.ops.soa import SoAVCycle
-from dgtpu_torch.ops.stokes_soa import _DGS, SoAStokesVCycle
+from dgtpu_torch.ops.stokes_soa import SoAStokesVCycle
 from dgtpu_torch.ops.stokes_stream import StreamedStokesVCycle
 from dgtpu_torch.ops.stream import StreamedVCycle
 from dgtpu_torch.ops.transfer import make_transfer
 from dgtpu_torch.ops.vcycle import RolledVCycle
 from dgtpu_torch.settings import Settings, load_params
+from dgtpu_torch.solvers.amg import solve_amg
 from dgtpu_torch.solvers.direct import solve_direct
+from dgtpu_torch.solvers.krylov import solve_krylov
 from dgtpu_torch.solvers.multigrid import MultigridSolver
 from dgtpu_torch.solvers.refinement import make_refined_solver
 from dgtpu_torch.solvers.relaxation_driver import residual_tracked_smoother
@@ -59,50 +64,38 @@ _CHECK_FLAGS = ("check_condition_number", "check_eigenvalues",
                 "check_orthonormality", "check_iteration_matrix")
 
 
+def _wants_mg_precond(settings):
+    """Whether the Krylov solve is preconditioned by a multigrid cycle (it
+    then assembles the multigrid hierarchy)."""
+    return (settings.solver.method == "krylov"
+            and str(getattr(getattr(settings.solver, "krylov", None),
+                            "preconditioner", "")) == "multigrid")
+
+
 def _unsupported(settings, method):
     """The first configuration choice this slice does not port, as
-    (what, ROADMAP item), or None."""
+    (what, the title of its ROADMAP Queue 1 item), or None."""
     s = settings
     mg = s.solver.multigrid
     perf = getattr(s, "performance", None)
-    if method not in ("multigrid", "direct", "smoother"):
-        return f"solver method {method!r}", \
-            "Queue 1 item 11 (the other solver routes)"
+    if method not in ("multigrid", "direct", "smoother", "krylov", "pyamg"):
+        return f"solver method {method!r}", "The other solver routes"
     if int(getattr(perf, "n_shards", 1) or 1) > 1 and method == "multigrid":
-        return "performance.n_shards > 1", "Queue 1 item 12 (multi-GPU)"
-    if s.problem.type == "Stokes":
-        if s.solution.ordering != "global":
-            return "local-ordering Stokes", "Queue 1 item 9 (local ordering)"
-        if method != "multigrid":
-            return f"the Stokes {method} solve", \
-                "Queue 1 item 9 (Stokes outside the mixed multigrid route)"
-        if str(getattr(perf, "precision", "full")) != "mixed":
-            return "full-precision Stokes multigrid", \
-                "Queue 1 item 9 (Stokes smoothers of the generic multigrid)"
-        for kind in ("penalty_parameter", "polynomial", "geometric"):
-            node = getattr(mg, f"{kind}_coarsening")
-            if not node.enabled:
-                continue
-            for side in (node.pre_smoother, node.post_smoother):
-                if str(side.smoother).lower() != _DGS:
-                    return (f"Stokes smoother {side.smoother!r}",
-                            "Queue 1 item 9 (Stokes smoothers other than "
-                            "distributive GS)")
-    if method == "multigrid" and mg.geometric_coarsening.enabled \
-            and mg.geometric_coarsening.use_FVM:
-        return "an FVM coarse level", "Queue 1 item 11 (models/fvm.py)"
+        return "performance.n_shards > 1", "Multi-GPU"
+    if (method == "multigrid" or _wants_mg_precond(s)) \
+            and mg.geometric_coarsening.enabled and mg.geometric_coarsening.use_FVM:
+        return "an FVM coarse level", "The other solver routes"
     if s.caching.enabled:
-        return "caching.enabled", "Queue 1 item 5 (utils/caching.py)"
+        return "caching.enabled", "Operator caching"
     if getattr(s.problem, "orthonormal_on_physical_element", False):
         return "problem.orthonormal_on_physical_element", \
-            "Queue 1 item 14 (ops/orthonormal.py)"
+            "The physical-element orthonormal basis"
     for flag in _CHECK_FLAGS:
         if getattr(s.problem, flag, False):
-            return f"problem.{flag}", "Queue 1 item 11 (diagnostics.py)"
+            return f"problem.{flag}", "The other solver routes"
     if getattr(s.visualization, "plot_sparsity_pattern", False) \
             or s.visualization.automatically_open_paraview:
-        return "visualization plots / ParaView", \
-            "Queue 1 item 13 (visualization.py)"
+        return "visualization plots / ParaView", "I/O and tools"
     return None
 
 
@@ -148,8 +141,8 @@ class DGFEM:
         missing = _unsupported(self.settings, self.settings.solver.method)
         if missing:
             raise NotImplementedError(
-                f"{missing[0]} is not ported to dgtpu_torch yet (ROADMAP "
-                f"{missing[1]})")
+                f'{missing[0]} is not ported to dgtpu_torch yet (ROADMAP Queue 1, '
+                f'"{missing[1]}")')
 
         folder = self.settings.grid.folder
         grid_filepath = (folder if os.path.isabs(folder)
@@ -207,7 +200,9 @@ class DGFEM:
         self.levels = []
         self.transfers = []
         self.transfer_types = []
-        if s.solver.method == "multigrid":
+        if s.solver.method == "multigrid" or _wants_mg_precond(s):
+            # a Krylov solve preconditioned by multigrid assembles the same
+            # hierarchy; one cycle per Krylov iteration applies M
             self._build_multigrid_hierarchy()
         else:
             self.levels.append(self._level(self.P_sol, self.sigma))
@@ -314,10 +309,11 @@ class DGFEM:
 
     def _assemble_all(self):
         finest = self.levels[-1]
+        direct = self.settings.solver.method == "direct"
         for lvl in self.levels:
             mms = self.mms if lvl is finest else None
             if "p" in self.vars:
-                assemble_stokes(lvl, mms)
+                assemble_stokes(lvl, mms, direct=direct)
             else:
                 lvl.op, lvl.rhs, lvl.inv_mass = assemble_poisson(lvl, mms)
 
@@ -334,12 +330,27 @@ class DGFEM:
                 u_modal = solve_direct(finest.op, finest.rhs)
             elif method == "smoother":
                 u_modal = self._solve_smoother(finest)
-            elif str(getattr(s.performance, "precision", "full")) == "mixed":
-                u_modal, res, n = self._solve_multigrid_mixed(finest)
-                self.solve_residual, self.outer_rounds = res, n
+            elif method == "krylov":
+                u_modal, self.krylov_iterations = solve_krylov(
+                    finest, s, mg_cycle=self._krylov_mg_cycle())
+            elif method == "pyamg":
+                variant = str(getattr(getattr(s.solver, "amg", None), "variant", "sa"))
+                u_modal, self.amg_info = solve_amg(finest.op, finest.rhs,
+                                                   variant=variant)
             else:
-                u_modal, res, n = self._solve_multigrid_full(finest)
-                self.solve_residual, self.cycles = res, n
+                precision = str(getattr(s.performance, "precision", "full"))
+                if precision == "mixed":
+                    try:
+                        u_modal, res, n = self._solve_multigrid_mixed(finest)
+                        self.solve_residual, self.outer_rounds = res, n
+                    except NotImplementedError as e:
+                        # dgtpu's route choice: the full-precision multigrid
+                        # where no mixed cycle builds (on the same device)
+                        self.logger.warning(str(e))
+                        precision = "full"
+                if precision != "mixed":
+                    u_modal, res, n = self._solve_multigrid_full(finest)
+                    self.solve_residual, self.cycles = res, n
             synchronize(u_modal)
         self.solve_seconds = t.elapsed() - self.graph_seconds
         if method == "multigrid":
@@ -353,27 +364,58 @@ class DGFEM:
     def _solve_multigrid_full(self, finest):
         """Full-precision multigrid: float64 cycles of the generic
         ``MultigridSolver`` with the configured smoothers (sequential or
-        red-black, ``performance.smoother_parallelization``) to
+        red-black, ``performance.smoother_parallelization``; distributive GS
+        on Stokes, ``performance.dgs_splitting``) to
         ``solver.multigrid.tolerance``."""
-        colors = [element_colors(l.Ni, l.Nj, self.device) for l in self.levels]
-        self.mg = MultigridSolver([l.op for l in self.levels], self.transfers,
-                                  self.transfer_types, self.settings, colors=colors)
+        self.mg = self._multigrid_solver()
         u, res, n, hist = self.mg.solve(finest.rhs)
         self.residuals = [r for r in hist if math.isfinite(r)]
         self.cycle_kind = "full precision"
         return u, res, n
 
+    def _multigrid_solver(self):
+        colors = [element_colors(l.Ni, l.Nj, self.device) for l in self.levels]
+        return MultigridSolver([l.op for l in self.levels], self.transfers,
+                               self.transfer_types, self.settings, colors=colors,
+                               levels=self.levels)
+
+    def _krylov_mg_cycle(self):
+        """One multigrid cycle from zero as the Krylov preconditioner
+        application (dgtpu's ``_krylov_mg_cycle``, ``api.py:395-426``), or
+        None unless ``solver.krylov.preconditioner: multigrid``.  A cycle
+        from a zero guess is a fixed linear operator.  It runs eagerly (dgtpu
+        jits it)."""
+        if not _wants_mg_precond(self.settings):
+            return None
+        if len(self.levels) < 2:
+            raise ValueError(
+                "solver.krylov.preconditioner: multigrid needs a coarse "
+                "hierarchy — enable at least one solver.multigrid coarsening")
+        self.mg = self._multigrid_solver()
+        k = len(self.mg.ops)
+
+        def cycle(r):
+            return self.mg.v_cycle(k, r, torch.zeros_like(r))
+
+        return cycle
+
     def _solve_smoother(self, finest):
         """The stand-alone smoother solve (``-s --smoother NAME``): symmetric
         sweeps until the residual drops by 6 orders, diverges or 1000 sweeps
-        pass (the reference's cap, relaxation.py:198)."""
+        pass (the reference's cap, relaxation.py:198); distributive GS (lsq
+        splitting) sweeps up to 100,000 times, as dgtpu's."""
         s = self.settings
         name = getattr(s.solver, "smoother", "block_gauss_seidel")
-        u, hist, n, status = residual_tracked_smoother(
-            finest.op, finest.rhs, name=name, direction="symmetric",
-            max_iterations=1000,
-            strategy=getattr(s.performance, "smoother_parallelization", "sequential"),
-            colors=element_colors(finest.Ni, finest.Nj, self.device))
+        if str(name).lower() == "distributive_gauss_seidel":
+            u, hist, n, status = distributive_gauss_seidel_solve(
+                finest, finest.rhs, max_iterations=1_000_000, splitting="lsq")
+        else:
+            u, hist, n, status = residual_tracked_smoother(
+                finest.op, finest.rhs, name=name, direction="symmetric",
+                max_iterations=1000,
+                strategy=getattr(s.performance, "smoother_parallelization",
+                                 "sequential"),
+                colors=element_colors(finest.Ni, finest.Nj, self.device))
         self.residuals = [r for r in hist if math.isfinite(r)]
         self.sweeps, self.smoother_status = n, status
         self._save_residual_history("relaxation")
@@ -441,10 +483,12 @@ class DGFEM:
                 kind = "SoA"
         except (ValueError, NotImplementedError) as e:
             if stokes:
+                # the rolled cycle smooths with block GS on the saddle
+                # operator, not the configured distributive GS: solve() runs
+                # the full-precision multigrid instead
                 raise NotImplementedError(
-                    f"mixed precision: the Stokes cycle is unavailable ({e}); dgtpu "
-                    "runs full precision here, not ported yet (ROADMAP Queue 1 "
-                    "item 9)") from e
+                    "mixed precision: the fused Stokes cycle is unavailable "
+                    f"({e}); running full precision") from e
             self.logger.info(f"SoA cycle unavailable ({e}); running the rolled cycle")
             cycle = RolledVCycle(ops, self.transfers, self.transfer_types, s, dims,
                                  **common)
@@ -525,9 +569,10 @@ class DGFEM:
         self.logger.info(f"L2 norm of the residual (modal): "
                          f"{self.residual / residual_0:.6e} (normalized)")
 
-        u_local = reorder_global_to_local(finest, u_modal) if stokes else u_modal
+        u_local = (reorder_global_to_local(finest, u_modal)
+                   if s.solution.ordering == "global" else u_modal)
         u_el = u_local.reshape(finest.N, finest.N_DOF_sol_tot)
-        if stokes:
+        if stokes and s.solver.method != "smoother":
             u_el = pressure_mean_shift(finest, u_el)
 
         # modal -> nodal (dgfem.py:201-209), batched

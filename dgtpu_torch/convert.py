@@ -36,21 +36,29 @@ def from_dgtpu_arrays(levels, transfers, types, dims, device="cpu"):
     return ops, out
 
 
-def _stencil(lv, n, device):
-    blocks = np.array(lv["blocks"], dtype=np.float64)
-    if blocks.shape[0] != n:
-        raise ValueError(f"level with {blocks.shape[0]} elements does not match "
-                         f"its {n} cells")
+def stencil_from_arrays(fields, device="cpu"):
+    """A float64 StencilOperator from numpy copies of a dgtpu
+    ``StencilOperator``'s fields ``blocks`` (N, 5, Br, Bc), ``nbr`` and
+    ``mask`` (N, 5): a Poisson level's operator, a local-ordering Stokes
+    level's (block size 2Nu + Np) or a global-order level's ``block_A``,
+    ``block_D`` or ``block_G``."""
     return StencilOperator(
-        torch.as_tensor(blocks, device=device),
-        torch.as_tensor(np.array(lv["nbr"]), dtype=torch.int64, device=device),
-        torch.as_tensor(np.array(lv["mask"]), dtype=torch.bool, device=device))
+        torch.as_tensor(np.array(fields["blocks"], dtype=np.float64), device=device),
+        torch.as_tensor(np.array(fields["nbr"]), dtype=torch.int64, device=device),
+        torch.as_tensor(np.array(fields["mask"]), dtype=torch.bool, device=device))
+
+
+def _stencil(lv, n, device):
+    op = stencil_from_arrays(lv, device)
+    if op.n_elem != n:
+        raise ValueError(f"level with {op.n_elem} elements does not match its {n} cells")
+    return op
 
 
 class StokesLevel:
-    """The part of a Stokes GridLevel the SoA cycle reads: sizes, P_sol /
-    N_DOF_sol and the component stencils ``block_A/D/G`` with the
-    (unpinned) saddle operator ``op``."""
+    """The part of a Stokes GridLevel the SoA cycle and the distributive-GS
+    smoothers read: sizes, P_sol / N_DOF_sol and the component stencils
+    ``block_A/D/G`` with the (unpinned) saddle operator ``op``."""
 
     def __init__(self, nj, ni, p_u, p_p, A, D, G):
         self.Nj, self.Ni, self.N = nj, ni, nj * ni

@@ -67,7 +67,7 @@ def assemble_poisson(level, mms=None, gt=None):
     if getattr(settings.problem, "orthonormal_on_physical_element", False):
         raise NotImplementedError(
             "problem.orthonormal_on_physical_element is not ported yet "
-            "(ROADMAP Queue 1 item 14, ops/orthonormal.py)")
+            '(ROADMAP Queue 1, "The physical-element orthonormal basis")')
     nu = settings.problem.kinematic_viscosity
     gt = gt if gt is not None else level.gt
     dev = level.device

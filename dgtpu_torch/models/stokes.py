@@ -1,16 +1,21 @@
-"""Stokes pressure-robust SIP-DG assembly, global ordering (port of
-``dgtpu/models/stokes.py``).
+"""Stokes pressure-robust SIP-DG assembly and the distributive Gauss-Seidel
+smoothers (port of ``dgtpu/models/stokes.py``).
 
-Reference: ``dgfem/discrete_system.py:416-745`` (global-order assembly),
+Reference: ``dgfem/discrete_system.py:405-1029`` (local- and global-order
+assembly), ``dgfem/relaxation.py:220-441`` (distributive Gauss-Seidel),
 ``utils/helpers.py:41-80`` (DOF reorderings), ``dgfem/dgfem.py:170-186``
 (pressure mean shift), ``dgfem/grid.py:227-269`` (MMS Epsilon).
 
-Global ordering keeps component stencils (A as 2x2 of Nu-blocks, D as
-Np x Nu, G as Nu x Np) composed into a saddle operator [[A, G], [D, 0]] on
-vectors [all u; all v; all p].  Local ordering (one (2Nu+Np) block per
-element) is ROADMAP Queue 1 item 9's remainder and raises here.
+Local ordering packs one (2Nu + Np) block per element: [u-modes, v-modes,
+p-modes].  Global ordering keeps component stencils (A as 2x2 of Nu-blocks,
+D as Np x Nu, G as Nu x Np) composed into a saddle operator [[A, G], [D, 0]]
+on vectors [all u; all v; all p].  The distributive smoothers run in float64
+plain torch on the operators' device, as dgtpu runs them outside any Pallas
+kernel: the dense ``DistributiveGS`` (lsq and the classical Schur
+splittings) and the stencil-form ``StencilDGS`` (lsq).
 """
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,8 +28,12 @@ from dgtpu_torch.models.faces import (FaceData, continuity_dirichlet_rhs,
                                       velocity_penalty_surface)
 from dgtpu_torch.models.poisson import (_vol_table, source_volume_rhs,
                                         volume_laplace)
-from dgtpu_torch.ops.stencil import StencilOperator
+from dgtpu_torch.ops import rolled
+from dgtpu_torch.ops.linalg import host_inv
+from dgtpu_torch.ops.stencil import StencilOperator, dense_block_gs_sweep
 from dgtpu_torch.ops.transfer import make_transfer, p_restriction
+from dgtpu_torch.solvers.relaxation_driver import tracked_status
+from dgtpu_torch.utils.norms import lp_norm
 
 # stencil slot order [self, iL, iR, jL, jR]; _MIRROR[s] = slot of e as seen
 # from its s-neighbor
@@ -216,32 +225,41 @@ def _stencil(blocks, level):
 
 
 def assemble_stokes(level, mms=None, direct=False):
-    """Assemble the global-order Stokes system on a level.
+    """Assemble the Stokes system on a level, in either ordering.
 
-    ``level.op`` becomes a StokesGlobalOperator and the component stencils
-    are stored on the level (``block_A/D/G``) for the distributive smoother
-    (discrete_system.py:416-745); ``level.rhs`` (when ``mms`` is given) is
-    in global order [all u; all v; all p].
+    Local order: ``level.op`` is one StencilOperator of block size 2Nu+Np
+    (discrete_system.py:812-965).  Global order: ``level.op`` is a
+    StokesGlobalOperator and the component stencils are stored on the level
+    (``block_A/D/G``) for the distributive smoother (discrete_system.py:
+    416-745).  ``direct`` pins one pressure DOF, for the direct solve.
+    ``level.rhs`` (when ``mms`` is given) is in the operator's own ordering.
     """
     s = level.settings
-    if s.solution.ordering != "global":
-        raise NotImplementedError(
-            "local-ordering Stokes assembly is not ported yet (ROADMAP "
-            "Queue 1 item 9, local ordering)")
     if getattr(s.problem, "orthonormal_on_physical_element", False):
         raise NotImplementedError(
-            "problem.orthonormal_on_physical_element is not ported yet "
-            "(ROADMAP Queue 1 item 14, ops/orthonormal.py)")
+            "problem.orthonormal_on_physical_element is not ported yet (ROADMAP "
+            'Queue 1, "The physical-element orthonormal basis")')
     parts = _element_blocks(level, level.gt)
-    level.block_A = _stencil(parts["A"], level)
-    level.block_D = _stencil(parts["D"], level)
-    level.block_G = _stencil(parts["G"], level)
-    level.op = StokesGlobalOperator(level.block_A, level.block_D,
-                                    level.block_G, pin=direct)
+    A, D, G = (_stencil(parts[c], level) for c in "ADG")
+    ordering = s.solution.ordering
+    if ordering == "global":
+        level.block_A, level.block_D, level.block_G = A, D, G
+        level.op = StokesGlobalOperator(A, D, G, pin=direct)
+    else:
+        nu2 = 2 * level.N_DOF_sol["u"]
+        B = nu2 + level.N_DOF_sol["p"]
+        blocks = A.blocks.new_zeros((level.N, 5, B, B))
+        blocks[:, :, :nu2, :nu2] = A.blocks
+        blocks[:, :, nu2:, :nu2] = D.blocks
+        blocks[:, :, :nu2, nu2:] = G.blocks
+        if direct:
+            # pin one pressure DOF (discrete_system.py:946)
+            blocks[0, 0, nu2, nu2] = 1.0
+        level.op = StencilOperator(blocks, A.nbr, A.mask)
     compute_mms_epsilon(level, mms)
     if mms is not None:
-        level.rhs = reorder_local_to_global(
-            level, assemble_rhs_stokes(level, mms, parts["fd"]))
+        rhs = assemble_rhs_stokes(level, mms, parts["fd"])
+        level.rhs = reorder_local_to_global(level, rhs) if ordering == "global" else rhs
     return level.op
 
 
@@ -480,3 +498,194 @@ def compute_mms_epsilon(level, mms):
         u_dot_n = u_dot_n + torch.sum(bmax[:, None] * gn_max * fd.wJ)
     level.Epsilon = float((f_int - u_dot_n) / torch.sum(level.gt["A"]))
     return level.Epsilon
+
+
+# --------------------------------------------------------------------------
+# distributive Gauss-Seidel (relaxation.py:220-441)
+# --------------------------------------------------------------------------
+
+def _dense_sym_bgs(A, Dinv, b, x, blocksize):
+    x = dense_block_gs_sweep(A, b, x, blocksize, backward=False, Dinv=Dinv)
+    return dense_block_gs_sweep(A, b, x, blocksize, backward=True, Dinv=Dinv)
+
+
+def _diag_blocks(A, B):
+    """The (n, B, B) diagonal blocks of a dense (n B, n B) matrix."""
+    n = A.shape[0] // B
+    e = torch.arange(n, device=A.device)
+    return A.reshape(n, B, n, B)[e, :, e, :]
+
+
+class DistributiveGS:
+    """Distributive GS smoother state for a global-order Stokes level.
+
+    Materializes the dense A, D, G, D@G (and the Schur pieces for the
+    classical splittings) once on the operators' device; each ``sweep`` is
+    a fixed sequence of dense products and sequential block-GS sweeps.  The
+    diagonal-block inverses run on host LAPACK, as dgtpu's do; the dense
+    inverses of the classical splittings run through ``torch.linalg`` on the
+    device (dgtpu inverts on the host: the two agree to rounding).
+    """
+
+    def __init__(self, level, splitting="lsq"):
+        if level.block_A is None:
+            raise ValueError("Distributive GS needs a global-order Stokes assembly")
+        self.splitting = splitting
+        n, nu, npd = level.N, level.N_DOF_sol["u"], level.N_DOF_sol["p"]
+        self.n, self.nu, self.npd = n, nu, npd
+        idx = _uv_index(n, nu, level.block_A.blocks.device)
+        self.A = level.block_A.to_dense()[idx][:, idx]
+        self.D = level.block_D.to_dense()[:, idx]
+        self.G = level.block_G.to_dense()[idx]
+        self.A_Dinv = host_inv(_diag_blocks(self.A, nu))
+        if splitting == "lsq":
+            self.DG = self.D @ self.G
+            self.DG_Dinv = host_inv(_diag_blocks(self.DG, npd))
+        elif splitting in ("classical", "classical_exact"):
+            if splitting == "classical":
+                A_D = torch.zeros_like(self.A)
+                e = torch.arange(2 * n, device=A_D.device)
+                A_D.view(2 * n, nu, 2 * n, nu)[e, :, e, :] = _diag_blocks(self.A, nu)
+                Ainv = torch.linalg.inv(A_D)
+                self.A_D = A_D          # its diagonal blocks are A's: A_Dinv
+            else:
+                Ainv = torch.linalg.inv(self.A)
+            self.Schur = -self.D @ Ainv @ self.G
+            self.Schur_Dinv = host_inv(_diag_blocks(self.Schur, npd))
+
+    def sweep(self, rhs, x):
+        """One distributive GS iteration on the global vector [u; v; p]."""
+        n, nu, npd = self.n, self.nu, self.npd
+        idx_u = 2 * n * nu
+        u_k, p_k = x[:idx_u], x[idx_u:]
+        f_mom, f_cont = rhs[:idx_u], rhs[idx_u:]
+        rhs_mom = f_mom - self.A @ u_k - self.G @ p_k
+        if self.splitting == "lsq":
+            du_s = _dense_sym_bgs(self.A, self.A_Dinv, rhs_mom,
+                                  torch.zeros_like(u_k), nu)
+            rhs_cont = f_cont - self.D @ (u_k + du_s)
+            dp_s = _dense_sym_bgs(self.DG, self.DG_Dinv, rhs_cont,
+                                  torch.zeros_like(p_k), npd)
+            du = du_s + self.G @ dp_s
+            rhs_dg = -self.D @ (self.A @ (self.G @ dp_s))
+            dp = _dense_sym_bgs(self.DG, self.DG_Dinv, rhs_dg,
+                                torch.zeros_like(p_k), npd)
+        elif self.splitting in ("classical", "classical_exact"):
+            # 'classical' diverges as the reference documents
+            # (relaxation.py:286): its Schur complement uses the
+            # block-diagonal A inverse.  Kept for parity; 'classical_exact'
+            # (relaxation.py:400-438 with the exact Schur complement) and
+            # 'lsq' converge.
+            A_s = self.A_D if self.splitting == "classical" else self.A
+            du_s = _dense_sym_bgs(A_s, self.A_Dinv, rhs_mom, torch.zeros_like(u_k), nu)
+            rhs_cont = f_cont - self.D @ (u_k + du_s)
+            dp_s = _dense_sym_bgs(self.Schur, self.Schur_Dinv, rhs_cont,
+                                  torch.zeros_like(p_k), npd)
+            rhs_a = self.A @ du_s - self.G @ dp_s
+            du = _dense_sym_bgs(self.A, self.A_Dinv, rhs_a, torch.zeros_like(u_k), nu)
+            dp = dp_s
+        else:
+            raise ValueError(self.splitting)
+        return torch.cat([u_k + du, p_k + dp])
+
+
+class StencilDGS:
+    """lsq-splitting distributive GS in 5-point stencil (rolled) form: DG
+    applies as two composed stencil matvecs and only the per-element
+    diagonal blocks are inverted (host LAPACK at setup).  The component
+    solves are red-black colored block-GS passes (dgtpu's documented
+    deviation from the reference's lexicographic dense sweeps; the dense
+    sequential form is ``splitting='lsq_dense'``)."""
+
+    def __init__(self, level, n_pass=2):
+        if level.block_A is None:
+            raise ValueError("Distributive GS needs a global-order Stokes assembly")
+        self.n, self.nu = level.N, level.N_DOF_sol["u"]
+        self.npd = level.N_DOF_sol["p"]
+        self.Ni, self.Nj = Ni, Nj = level.Ni, level.Nj
+        self.n_pass = n_pass
+        self.A = rolled.to_rolled(level.block_A, Ni, Nj)
+        self.D = rolled.to_rolled(level.block_D, Ni, Nj)
+        self.G = rolled.to_rolled(level.block_G, Ni, Nj)
+        self.A_Dinv = host_inv(self.A[:, :, 0])
+        self.DG_diag = _dg_diag_blocks(level.block_D, level.block_G).reshape(
+            Nj, Ni, self.npd, self.npd)
+        self.DG_Dinv = host_inv(self.DG_diag)
+        self.colors = rolled.checkerboard(Nj, Ni, device=self.A.device)
+
+    def _bgs(self, blocks, Dinv, rhs, x):
+        for _ in range(self.n_pass):
+            for c in (0, 1):
+                xn = rolled.bmv(Dinv, rhs - rolled.offdiag_matvec(blocks, x))
+                x = torch.where((self.colors == c)[:, :, None], xn, x)
+        return x
+
+    def _bgs_dg(self, rhs, p):
+        for _ in range(self.n_pass):
+            for c in (0, 1):
+                off = (rolled.matvec(self.D, rolled.matvec(self.G, p))
+                       - rolled.bmv(self.DG_diag, p))
+                pn = rolled.bmv(self.DG_Dinv, rhs - off)
+                p = torch.where((self.colors == c)[:, :, None], pn, p)
+        return p
+
+    def sweep(self, rhs, x):
+        """One distributive GS iteration on the global vector [u; v; p]."""
+        n, nu, npd = self.n, self.nu, self.npd
+        Nj, Ni = self.Nj, self.Ni
+        idx_u = 2 * n * nu
+        uv = _global_uv_to_elem(x[:idx_u], n, nu).reshape(Nj, Ni, 2 * nu)
+        p = x[idx_u:].reshape(Nj, Ni, npd)
+        f_mom = _global_uv_to_elem(rhs[:idx_u], n, nu).reshape(Nj, Ni, 2 * nu)
+        f_cont = rhs[idx_u:].reshape(Nj, Ni, npd)
+
+        rhs_mom = f_mom - rolled.matvec(self.A, uv) - rolled.matvec(self.G, p)
+        du_s = self._bgs(self.A, self.A_Dinv, rhs_mom, torch.zeros_like(uv))
+        rhs_cont = f_cont - rolled.matvec(self.D, uv + du_s)
+        dp_s = self._bgs_dg(rhs_cont, torch.zeros_like(p))
+        G_dp = rolled.matvec(self.G, dp_s)
+        du = du_s + G_dp
+        rhs_dg = -rolled.matvec(self.D, rolled.matvec(self.A, G_dp))
+        dp = self._bgs_dg(rhs_dg, torch.zeros_like(p))
+
+        uv_g = _elem_uv_to_global((uv + du).reshape(-1), n, nu)
+        return torch.cat([uv_g, (p + dp).reshape(-1)])
+
+
+def make_dgs(level, splitting="lsq"):
+    """Distributive-GS smoother factory: ``lsq`` (the reference default) in
+    stencil form, ``lsq_dense`` the dense sequential-sweep variant, the
+    ``classical*`` Schur splittings dense (they need an approximation of
+    A^-1)."""
+    if splitting == "lsq":
+        return StencilDGS(level)
+    if splitting == "lsq_dense":
+        return DistributiveGS(level, splitting="lsq")
+    return DistributiveGS(level, splitting=splitting)
+
+
+def distributive_gauss_seidel_solve(level, rhs, u0=None, splitting="lsq",
+                                    max_iterations=1000, tol=1e-6, div_tol=1e10):
+    """Residual-tracked distributive GS solve (relaxation.py:236-283).
+
+    Returns ``(u, residual_history, n, status)`` with status 0 (converged),
+    1 (max iterations) or 2 (diverged, a non-finite residual included), as
+    the relaxation driver.  A host loop with one residual read per sweep;
+    the history holds ``min(max_iterations, 20000)`` entries (numpy,
+    NaN-padded past the last sweep) as dgtpu's does.
+    """
+    dgs = make_dgs(level, splitting)
+    op = level.op
+    u = torch.zeros_like(rhs) if u0 is None else u0
+    max_iterations = int(min(max_iterations, 100000))
+    hist = np.full(min(max_iterations, 20000), np.nan)
+    res0 = float(lp_norm(rhs - op.matvec(u), 2))
+    res = float(lp_norm(rhs - op.matvec(u), 2)) / res0 if res0 else math.nan
+    n = 0
+    while n < max_iterations and tol <= res <= div_tol and math.isfinite(res):
+        u = dgs.sweep(rhs, u)
+        res = float(lp_norm(rhs - op.matvec(u), 2)) / res0
+        if n < hist.size:
+            hist[n] = res
+        n += 1
+    return u, hist, n, tracked_status(res, tol, div_tol)

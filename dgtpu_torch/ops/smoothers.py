@@ -295,6 +295,6 @@ def apply_smoother(name, op, rhs, u, direction="symmetric", omega=1.0,
                                   iterations=iterations, Dinv=Dinv,
                                   strategy="redblack" if kind == "gs_rb" else strategy,
                                   colors=colors, pack=pack, fronts=fronts)
-    raise NotImplementedError(
-        f"smoother {name!r} needs the Stokes distributive-GS solve, which is not "
-        "ported for the full-precision routes (ROADMAP Queue 1 item 9)")
+    # distributive GS runs on the Stokes levels' own state
+    # (models/stokes.make_dgs), not on one operator
+    raise ValueError(f"Smoother {name!r} requires the Stokes distributive driver")

@@ -289,7 +289,7 @@ class SoAHierarchy:
             else:
                 raise NotImplementedError(
                     f"the SoA cycle has no {t.kind!r} transfer (FVM coarse "
-                    "level: ROADMAP Queue 1 item 11)")
+                    'level: ROADMAP Queue 1, "The other solver routes")')
 
     def _restrict(self, k, r):
         kind = self.transfers[k].kind

@@ -10,7 +10,7 @@ constants (``dgfem/dgfem.py:269-372``):
 
 Column ordering of geometric operators: child_j slowest, child_i, then mode
 (solver.py:152-190).  The FVM kinds (``dg_to_fvm``, ``geometric_fvm``) are
-ROADMAP Queue 1 item 11.
+not ported yet (ROADMAP Queue 1, "The other solver routes").
 """
 
 from functools import lru_cache
@@ -148,5 +148,5 @@ def make_transfer(kind, p_fine=None, p_coarse=None, cf=2, device="cpu",
     if kind in ("dg_to_fvm", "geometric_fvm"):
         raise NotImplementedError(
             f"the {kind} transfer (FVM coarse level) is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+            '(ROADMAP Queue 1, "The other solver routes")')
     raise ValueError(kind)

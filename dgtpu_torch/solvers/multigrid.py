@@ -3,16 +3,20 @@
 
 Each cycle is smoother sweeps, stencil matvecs, transfer products and the
 cached coarse solve, all plain torch in the operators' dtype on their device
-(dgtpu runs them outside any Pallas kernel).  The outer tolerance loop is a
-host loop that carries the residual history (the reference pickles it for
-its plots; it is returned here).  Divergence (a non-finite residual) ends
+(dgtpu runs them outside any Pallas kernel).  On global-order Stokes
+levels the smoother is distributive GS (``models/stokes.make_dgs``,
+splitting ``performance.dgs_splitting``, default ``classical_exact``).  The
+outer tolerance loop is a host loop that carries the residual history (the
+reference pickles it for its plots; it is returned here).  Divergence (a non-finite residual) ends
 the loop instead of the reference's ``exit()``.
 """
 
 import math
+from dataclasses import replace
 
 import torch
 
+from dgtpu_torch.models.stokes import make_dgs
 from dgtpu_torch.ops.linalg import host_lu_inverse
 from dgtpu_torch.ops.smoothers import (SMOOTHER_ALIASES, ColorPack, apply_smoother,
                                        block_diag_inv, estimate_rho_dinv_a,
@@ -50,9 +54,10 @@ class MultigridSolver:
     types : list of 'penalty_parameter'|'polynomial'|'geometric' per transfer
     settings : Settings (smoother configs per coarsening type, tolerances)
     colors : list of element colorings per level (for the red-black sweeps)
+    levels : the GridLevels, coarsest first (needed by distributive GS)
     """
 
-    def __init__(self, ops, transfers, types, settings, colors=None):
+    def __init__(self, ops, transfers, types, settings, colors=None, levels=None):
         assert len(ops) == len(transfers) + 1 == len(types) + 1
         self.ops = ops
         self.transfers = transfers
@@ -62,10 +67,12 @@ class MultigridSolver:
         self.strategy = getattr(getattr(settings, "performance", None),
                                 "smoother_parallelization", "sequential")
         self.colors = colors or [None] * len(ops)
+        # a Stokes saddle operator (global order) has no block-stencil form
+        stencil = [hasattr(op, "blocks") for op in ops]
         self.packs = [ColorPack(op, c)
-                      if self.strategy == "redblack" and c is not None else None
-                      for op, c in zip(ops, self.colors)]
-        self.Dinv = [block_diag_inv(op) for op in ops]
+                      if self.strategy == "redblack" and c is not None and st else None
+                      for op, c, st in zip(ops, self.colors, stencil)]
+        self.Dinv = [block_diag_inv(op) if st else None for op, st in zip(ops, stencil)]
         self.coarse_solver = mg.coarse_grid_solver
         # V (reference behavior), W (each coarse sub-hierarchy visited
         # twice) or F (first visit recurses as F, second as V)
@@ -76,19 +83,28 @@ class MultigridSolver:
         # full multigrid (nested iteration): solve coarsest first, prolong
         # upward with one cycle per level
         self.full_multigrid = bool(getattr(mg, "full_multigrid", False))
-        # dense inverse cached at setup; applied as one product per visit
-        self.coarse_inv = (host_lu_inverse(ops[0].to_dense())
-                           if self.coarse_solver in ("direct", "amg") else None)
+        # dense inverse cached at setup; applied as one product per visit.  A
+        # Stokes saddle operator needs its pressure pin to be invertible
+        self.coarse_inv = None
+        if self.coarse_solver in ("direct", "amg"):
+            coarse = ops[0]
+            if hasattr(coarse, "pin") and not coarse.pin:
+                coarse = replace(coarse, pin=True)
+            self.coarse_inv = host_lu_inverse(coarse.to_dense())
         self._smoother_cfg = {}
         for t in set(types):
             node = getattr(mg, f"{t}_coarsening")
             self._smoother_cfg[t] = (SmootherConfig.from_settings(node.pre_smoother),
                                      SmootherConfig.from_settings(node.post_smoother))
         names = {c.name for pair in self._smoother_cfg.values() for c in pair}
+        # distributive GS: the smoother state of every level, built at setup
+        self._dgs = {}
         if _DGS in names:
-            raise NotImplementedError(
-                "distributive GS smoothing in the full-precision multigrid is "
-                "not ported to dgtpu_torch yet (ROADMAP Queue 1 item 9)")
+            if levels is None:
+                raise ValueError("distributive GS smoothing needs GridLevels")
+            splitting = getattr(getattr(settings, "performance", None),
+                                "dgs_splitting", "classical_exact")
+            self._dgs = {k: make_dgs(lvl, splitting) for k, lvl in enumerate(levels)}
         # level k smooths with its transfer's config (k >= 1); the coarsest
         # level only smooths when there is no cached coarse inverse (then
         # with the pre-smoother of types[0])
@@ -98,18 +114,30 @@ class MultigridSolver:
         # Chebyshev smoothing interval: per-level rho(D^-1 A) by power
         # iteration at setup, only on the levels that smooth with it
         self.eig_max = [1.1 * estimate_rho_dinv_a(op, dv)
-                        if "chebyshev" in lvl_names else None
+                        if dv is not None and "chebyshev" in lvl_names else None
                         for op, dv, lvl_names in zip(ops, self.Dinv, used)]
         # wavefronts of the sequential sweeps, per level that runs them
         sequential = self.strategy != "redblack"
         self.fronts = [(sweep_fronts(op), sweep_fronts(op, backward=True))
-                       if sequential and any(SMOOTHER_ALIASES[n] == "gs"
-                                             for n in lvl_names) else None
-                       for op, lvl_names in zip(ops, used)]
+                       if st and sequential and any(SMOOTHER_ALIASES[n] == "gs"
+                                                    for n in lvl_names) else None
+                       for op, st, lvl_names in zip(ops, stencil, used)]
 
     # -- one cycle (host recursion) -----------------------------------------
 
     def _smooth(self, cfg, k, rhs, u, iterations=None):
+        if cfg.name == _DGS:
+            # the Stokes saddle smoother
+            for _ in range(int(iterations or cfg.iterations)):
+                u = self._dgs[k].sweep(rhs, u)
+            return u
+        if cfg.name == "chebyshev" and self.eig_max[k] is None:
+            # a Stokes saddle operator has no block-stencil form to
+            # power-iterate
+            raise ValueError(
+                "chebyshev smoothing needs a block-stencil operator (level "
+                f"{k} has none); use distributive_gauss_seidel for saddle "
+                "systems")
         return apply_smoother(cfg.name, self.ops[k], rhs, u,
                               direction=cfg.direction, omega=cfg.omega,
                               iterations=iterations or cfg.iterations,

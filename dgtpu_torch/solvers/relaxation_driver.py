@@ -56,14 +56,17 @@ def residual_tracked_smoother(op, rhs, u0=None, name="block_gauss_seidel",
         res = float(lp_norm(rhs - op.matvec(u), 2)) / res0
         history.append(res)
         n += 1
-    # a NaN/Inf residual is divergence, not max-iterations
+    return u, history, n, tracked_status(res, tol, div_tol)
+
+
+def tracked_status(res, tol, div_tol):
+    """Status of a tracked solve that ended at normalized residual ``res``:
+    0 converged, 2 diverged (a NaN/Inf residual included), else 1."""
     if res < tol:
-        status = 0
-    elif res > div_tol or not math.isfinite(res):
-        status = 2
-    else:
-        status = 1
-    return u, history, n, status
+        return 0
+    if res > div_tol or not math.isfinite(res):
+        return 2
+    return 1
 
 
 def fixed_sweeps_smoother(op, rhs, u0=None, name="block_gauss_seidel",

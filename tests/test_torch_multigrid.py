@@ -139,8 +139,13 @@ def test_solve_stops_at_max_cycles_and_on_divergence(rect):
 
 
 def test_distributive_gs_names_its_roadmap_item(rect):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        _pair(rect, smoother="distributive_Gauss_Seidel", port_only=True)
+    """Distributive GS smooths from the Stokes GridLevels' own state: without
+    ``levels`` dgtpu's MultigridSolver and the port's raise the same
+    ValueError (the test keeps the name it had while the port raised
+    NotImplementedError here).  The cycle type is validated."""
+    for port_only in (False, True):     # dgtpu's constructor first, then the port's
+        with pytest.raises(ValueError, match="distributive GS smoothing needs GridLevels"):
+            _pair(rect, smoother="distributive_Gauss_Seidel", port_only=port_only)
     s = copy.deepcopy(rect.settings)
     s.solver.multigrid.cycle_type = "X"
     j, t = _pair(rect)

@@ -5,8 +5,9 @@ cycle (geometric factors 4,2 coarsen to 1x1, an odd Ni).
 
 Bars: L1/L2(u) within 1e-8 relative, the same number of cycles, sweeps or
 outer rounds; the rolled route reproduces dgtpu's L2(u) for 4x4 p=2 with
-factors 4,2.  Stokes outside the mixed multigrid route still raises, naming
-its ROADMAP item.
+factors 4,2.  Stokes outside the mixed multigrid route runs as dgtpu's
+does, and stops where dgtpu's stops; ``-k`` and ``-amg`` run, ``-fvm``
+still raises, naming its ROADMAP item.
 """
 
 import os
@@ -147,18 +148,45 @@ def test_cli_entry_points(tmp_path, monkeypatch, argv, attr):
 
 @pytest.mark.parametrize("method", ["solve_multigrid", "solve_direct", "solve_smoother"])
 def test_stokes_outside_the_mixed_route_raises(tmp_path, monkeypatch, method):
-    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    """Global-order Stokes (p_u=2/p_p=1) outside the mixed multigrid route,
+    with the block-GS smoother (the test keeps the name it had while the
+    port raised here): ``-d`` solves to dgtpu's L1/L2(u, v, p) within 1e-8;
+    the multigrid and the stand-alone smoother stop with the AttributeError
+    dgtpu stops with (a global-order saddle operator has no diagonal blocks;
+    distributive GS is the Stokes smoother there)."""
     params = _params()
     params["problem"]["type"] = "Stokes"
     params["solution"]["ordering"] = "global"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        tapi.DGFEM(device="cpu", settings=Settings(params), smoother="block_gauss_seidel",
-                   **{method: True})
+    params["solution"]["p"]["polynomial degree"] = 1
+    kw = {method: True, "smoother": "block_gauss_seidel"}
+    if method != "solve_direct":
+        with pytest.raises(AttributeError, match="diag_blocks"):
+            JDGFEM(settings=JSettings(params), **kw).solve()
+        monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+        with pytest.raises(AttributeError, match="diag_blocks"):
+            tapi.DGFEM(device="cpu", settings=Settings(params), **kw).solve()
+        return
+    ref, port = _both(tmp_path, params, **kw)
+    assert port.levels[-1].op.pin and port.residual < 1e-12
+    for var in "uvp":
+        for norm in ("L1", "L2"):
+            name = f"{norm}_error_{var}"
+            assert getattr(port, name) == pytest.approx(getattr(ref, name), rel=1e-8)
 
 
 @pytest.mark.parametrize("method", ["solve_krylov", "solve_pyamg",
                                     "solve_finite_volume_method"])
 def test_other_methods_raise(tmp_path, monkeypatch, method):
-    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tapi.DGFEM(device="cpu", settings=Settings(_params()), **{method: True})
+    """``-k`` (GMRES, block-diagonal preconditioner) and ``-amg`` (smoothed
+    aggregation) run to dgtpu's L1/L2(u) within 1e-8 (the test keeps the
+    name it had while they raised); ``-fvm`` still raises, naming its ROADMAP
+    item."""
+    if method == "solve_finite_volume_method":
+        monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+        with pytest.raises(NotImplementedError,
+                           match='ROADMAP Queue 1, "The other solver routes"'):
+            tapi.DGFEM(device="cpu", settings=Settings(_params()), **{method: True})
+        return
+    ref, port = _both(tmp_path, _params(), **{method: True})
+    assert len(port.levels) == 1
+    _errors_match(ref, port)

@@ -120,31 +120,78 @@ def test_residual_history_leaves_dgtpus_directory(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, item", [
-    # full-precision Stokes: the generic multigrid's Stokes smoothers
-    ({"performance.precision": "full", "problem.type": "Stokes",
-      "solution.ordering": "global"}, "item 9"),
-    ({"performance.n_shards": 2}, "item 12"),
-    ({"problem.type": "Stokes", "solution.ordering": "local"}, "item 9"),
-    ({"solver.multigrid.geometric coarsening.use FVM": True}, "item 11"),
-    ({"caching.enabled": True}, "item 5"),
-    ({"problem.check eigenvalues": True}, "item 11"),
-    ({"problem.orthonormal on physical element": True}, "item 14"),
-    # global-order Stokes with the paramfile's block-GS smoothers
-    ({"problem.type": "Stokes", "solution.ordering": "global"}, "item 9"),
+    ({"performance.n_shards": 2}, "Multi-GPU"),
+    ({"solver.multigrid.geometric coarsening.use FVM": True}, "The other solver routes"),
+    ({"caching.enabled": True}, "Operator caching"),
+    ({"problem.check eigenvalues": True}, "The other solver routes"),
+    ({"problem.check condition number": True}, "The other solver routes"),
+    ({"problem.orthonormal on physical element": True},
+     "The physical-element orthonormal basis"),
+    ({"visualization.plot sparsity pattern": True}, "I/O and tools"),
+    ({"visualization.automatically open paraview": True}, "I/O and tools"),
 ])
 def test_unported_branches_raise(tmp_path, monkeypatch, override, item):
+    """Each branch this slice does not port raises, naming its ROADMAP
+    Queue 1 item by title."""
     monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
     params = yaml.safe_load(open(_paramfile(tmp_path, **override)))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+    with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
         tapi.DGFEM(device="cpu", settings=Settings(params), solve_multigrid=True)
 
 
-def test_other_solver_routes_raise(tmp_path, monkeypatch):
+@pytest.mark.parametrize("override, error, match", [
+    # full-precision Stokes with the paramfile's block-GS smoothers: the
+    # saddle operator has no diagonal blocks
+    ({"performance.precision": "full", "problem.type": "Stokes",
+      "solution.ordering": "global"}, AttributeError, "diag_blocks"),
+    # Stokes multigrid needs global ordering: the settings' own check
+    ({"problem.type": "Stokes", "solution.ordering": "local"}, AssertionError,
+     'assert settings.solution.ordering == "global"'),
+    # mixed precision with block-GS smoothers: no Stokes cycle builds, so the
+    # route runs full precision, which stops as above
+    ({"problem.type": "Stokes", "solution.ordering": "global"}, AttributeError,
+     "diag_blocks"),
+])
+def test_stokes_branches_stop_where_dgtpu_does(tmp_path, monkeypatch, override,
+                                               error, match):
+    """The Stokes multigrid configurations that raised NotImplementedError
+    before this slice ported them now run dgtpu's path, and stop where
+    dgtpu's DGFEM stops on the same parameters: the same error type, with
+    the same message, or for an AssertionError the same failing statement
+    of ``Settings._validate_settings``."""
+    from dgtpu.api import DGFEM as JDGFEM
+    from dgtpu.settings import Settings as JSettings
     monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path), solve_krylov=True)
+    params = yaml.safe_load(open(_paramfile(tmp_path, **override)))
+    params["visualization"]["export"] = False
+    for dgfem, settings in ((JDGFEM, JSettings), (tapi.DGFEM, Settings)):
+        kwargs = {"device": "cpu"} if dgfem is tapi.DGFEM else {}
+        with pytest.raises(error) as exc:
+            dgfem(settings=settings(yaml.safe_load(yaml.safe_dump(params))),
+                  solve_multigrid=True, **kwargs).solve()
+        if error is AssertionError:
+            last = exc.traceback[-1]
+            assert last.name == "_validate_settings"
+            assert str(last.statement).strip() == match
+        else:
+            assert match in str(exc.value)
+
+
+def test_other_solver_routes_raise(tmp_path, monkeypatch):
+    """``-k`` runs, through the constructor and the CLI (the test keeps the
+    name it had while it raised); ``-fvm`` still raises, and the CLI exits
+    with 1."""
+    monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    dg = tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path), solve_krylov=True)
+    dg.solve()
+    cli = main(["-k", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
+    assert cli.L2_error_u == dg.L2_error_u
+    assert cli.krylov_iterations == dg.krylov_iterations >= 1
+    with pytest.raises(NotImplementedError, match='Queue 1, "The other solver routes"'):
+        tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path),
+                   solve_finite_volume_method=True)
     with pytest.raises(SystemExit) as exc:
-        main(["-k", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
+        main(["-fvm", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
     assert exc.value.code == 1
 
 

@@ -139,10 +139,19 @@ def test_every_smoother_string(rect, name):
 
 
 def test_distributive_gs_names_its_roadmap_item(rect):
+    """Distributive GS runs on a Stokes level's own state
+    (``models/stokes.make_dgs``), not through ``apply_smoother``: both
+    packages raise the same ValueError there (the test keeps the name it had
+    while the port raised NotImplementedError)."""
     top = _port_op(rect)
-    rhs, u = (torch.as_tensor(v) for v in _vectors(rect))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        ts.apply_smoother("distributive_gauss_seidel", top, rhs, u)
+    rhs, u = _vectors(rect)
+    match = "requires the Stokes distributive driver"
+    with pytest.raises(ValueError, match=match):
+        js.apply_smoother("distributive_gauss_seidel", rect.op, jnp.asarray(rhs),
+                          jnp.asarray(u))
+    with pytest.raises(ValueError, match=match):
+        ts.apply_smoother("distributive_gauss_seidel", top, torch.as_tensor(rhs),
+                          torch.as_tensor(u))
 
 
 @pytest.mark.parametrize("direction", ["forward", "backward", "symmetric"])

@@ -155,12 +155,28 @@ def test_reorder_and_pressure_shift_match(pair):
 
 
 def test_local_ordering_raises(pair):
+    """Local ordering assembles (the test keeps the name it had while it
+    raised): one stencil of (2Nu + Np) blocks holding the global-order
+    level's A, D and G blocks, the pressure pin for the direct solve, and
+    no component stencils set by it."""
     _, port = pair
     lvl = port.levels[0]
-    saved = lvl.settings.solution.ordering
+    saved = (lvl.settings.solution.ordering, lvl.op, lvl.rhs)
+    A, D, G = lvl.block_A, lvl.block_D, lvl.block_G
+    nu2 = 2 * lvl.N_DOF_sol["u"]
     lvl.settings.solution.ordering = "local"
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            tstokes.assemble_stokes(lvl)
+        for direct in (False, True):
+            op = tstokes.assemble_stokes(lvl, direct=direct)
+            b = op.blocks.clone()
+            assert b.shape[2:] == (lvl.N_DOF_sol_tot,) * 2
+            assert (lvl.block_A, lvl.block_D, lvl.block_G) == (A, D, G)
+            assert torch.equal(op.nbr, A.nbr) and torch.equal(op.mask, A.mask)
+            assert b[0, 0, nu2, nu2] == (1.0 if direct else 0.0)
+            b[0, 0, nu2, nu2] = 0.0
+            assert _rel(b[:, :, :nu2, :nu2], A.blocks) < TOL
+            assert _rel(b[:, :, nu2:, :nu2], D.blocks) < TOL
+            assert _rel(b[:, :, :nu2, nu2:], G.blocks) < TOL
+            assert not b[:, :, nu2:, nu2:].any()
     finally:
-        lvl.settings.solution.ordering = saved
+        lvl.settings.solution.ordering, lvl.op, lvl.rhs = saved
