@@ -117,7 +117,21 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      Poisson 8x8 p5 ``-k`` (GMRES with block-diagonal, AMG and multigrid
      preconditioners, CG with a symmetric cycle) held to phase 20's ``-d``
      L2(u), ``-amg`` sa and rs held to dgtpu's route; the phase's wall
-     time.
+     time;
+ 23. the routes ported last (``other_route_phases``): ``-fvm`` at 64x64 p5
+     (4,096 cells, held to dgtpu's L2(u)) and its observed order from 16x16
+     to 32x32 p2; the multigrid with FVM coarse levels in full precision
+     (8x8 p1, 32x32 p_grid 2 / p1: dgtpu's cycles and L2(u)) and the mixed
+     -> full fallback; ``-amp`` (DG 8x8 p5, FVM 8x8 p1 through the CLI;
+     101x101 modes, min and max of A1-A4 held to dgtpu's, with the
+     seconds); the six check switches (Poisson 8x8 p2, Stokes 4x4 local and
+     global order) held to dgtpu's; the mixed route in the physical-element
+     orthonormal basis (Poisson 8x8 p5, Stokes 8x8: graphed, held to the
+     standard basis's routes, their kernels' launches counted, the cycle's
+     graph against eager bit for bit); the 8x8 p5 mixed route twice with
+     caching on (the second loads every level; the same L2(u) bit for bit;
+     both setup times); the host C++ kernels (``dgtpu_torch/native``) against
+     the plain torch ones at 8x8 p5; the phase's wall time.
 Then the launch geometries at which K1, K6 and K7 were held to their plain
 versions (a timed case at any other raises).  The last lines are the
 kernels' JSON record (per kernel: launches on the main paths, worst error
@@ -368,6 +382,20 @@ def library_of(kern, args):
                 "torch.einsum, gather not timed"
         return (lambda: torch.einsum("cpab,cpb->cap", Tp, g).add_(base[0])), \
             "torch.einsum + add_, gather not timed"
+    if kern is soa.stencil_apply:
+        lv, blk, x, *rest = args
+        base, sign = (rest + [None, 1.0])[:2]
+        # per color: its own field and the other color's four neighbor
+        # fields, (2, 5, B_src, C); narrower blocks widened before the call
+        g = torch.stack([torch.stack((x[c], *soa._nbr_fields(x[1 - c], c, lv.masks, lv.nh,
+                                                             lv.periodic)))
+                         for c in (0, 1)])
+        w = blk.to(x.dtype)
+        if base is None:
+            return (lambda: torch.einsum("ksbac,ksbc->kac", w, g).mul_(sign)), \
+                "torch.einsum + mul_, gather not timed"
+        return (lambda: torch.add(base, torch.einsum("ksbac,ksbc->kac", w, g),
+                                  alpha=sign)), "torch.einsum + add, gather not timed"
     if kern is vcycle.stencil_apply:
         lv, x, *rest = args
         base, sign = (rest + [None, 1.0])[:2]
@@ -549,7 +577,8 @@ def grid_text(g):
 
 def kernel_times(label, kern, args, card, n_graph=200):
     """K1, K5, K6 or K7 at ``args`` eagerly and in a graph of ``n_graph``
-    calls beside its bound (K7: and its streaming floor), with the grid its
+    calls beside its bound (K7: and its streaming floor; K5: and its library
+    call, ``library_of``, both ways), with the grid its
     launcher picks (and with ``--parent`` the earlier tree's kernel both ways
     in turns, held to this tree's bit for bit); prints them.  Raises if
     check_kernels held a cluster kernel at no such grid."""
@@ -578,6 +607,10 @@ def kernel_times(label, kern, args, card, n_graph=200):
     g_ms = graph_ms(run, n_graph)
     b_ms, b_by = bound(kern, args)
     grid = grid_record(kern, args)
+    library = library_of(kern, args) if kern is soa.stencil_apply else None
+    if library is not None:
+        floor += (f"; library {cuda_ms(library[0], 200):.5f} ms eager, "
+                  f"{graph_ms(library[0], n_graph):.5f} ms in a graph ({library[1]})")
     print(f"{label}: kernel {ms:.5f} ms eager, {g_ms:.5f} ms in a graph, bound "
           f"{b_ms:.6f} ms ({b_by}){floor}; {grid_text(grid)} ({card})", flush=True)
     if launched(kern) in cluster_kernels() and tuple(grid.values()) \
@@ -1864,6 +1897,342 @@ def solver_route_phases(card, stokes_l2, l2_direct):
           f"time ({card})", flush=True)
 
 
+# -- phase 23 ---------------------------------------------------------------
+# dgtpu's values for phase 23, computed on a CPU with the JAX reference
+# package (JAX_PLATFORMS=cpu; ``main`` is dgtpu.__main__.main, ``P(**over)``
+# the shipped paramfile with export off and the dotted-path overrides):
+#   -fvm at 64x64 p5: main(['-fvm', '-f', 'Rectangle_64X64_nPoly5.xyz',
+#     '--p-grid', '5', '--silent', '--backend', 'cpu']).L2_error_u
+DGTPU_FVM_L2_64 = 0.0013646157669046444
+# the use-FVM multigrid (tests/test_curvilinear_fvm.py:112-136: polynomial
+# coarsening off, geometric factor 2, use FVM): (cycles, L2(u)) with
+# cycles = len(dg.residuals) - 1 of DGFEM(settings, solve_multigrid=True)
+# after solve(), on (grid, p_grid, p_solution) = (8x8, 1, 1) and
+# (32x32, 2, 1)
+DGTPU_USE_FVM = {8: (23, 0.0821487812598928), 32: (144, 0.004984038508874388)}
+# -amp: (min, max) of A1..A4 over the 101x101 theta grid; DG: dgtpu.solvers.
+# amplification.calculate_amplification(dg.levels[-1], dir, n_theta=101,
+# export=False) with dg = DGFEM(settings=Settings(P()), solve_direct=True)
+# (8x8 p5); FVM: the amplification.npz of main(['-amp',
+# '--fvm-discretization', '-f', 'Rectangle_8X8_nPoly1.xyz', '--p-grid', '1',
+# '--p-solution', '0', '--silent', '--backend', 'cpu'])
+DGTPU_AMP = {"dg": {1: (0.07634511047684112, 1.0000002464944788),
+                    2: (0.1186026775291931, 0.9999981578221624),
+                    3: (0.21109833024290747, 0.9999982450730317),
+                    4: (0.06680144494374676, 1.0000001124633144)},
+             "fvm": {1: (0.0001341806777777679, 0.934359310267668),
+                     2: (0.00010025352887522827, 0.9363019538686694),
+                     3: (0.0001002535288752274, 0.9363019538686693),
+                     4: (0.00010983977684680415, 0.940460854770357)}}
+# the check switches: DGFEM(..., solve_direct=True).diagnostics; Poisson
+# 8x8 p2 with all six (P() on Rectangle_8X8_nPoly2, p_grid 2, p_sol 2),
+# Stokes 4x4 (stokes_params(4), precision full) in local order with all but
+# the consistency check and in global order with the eigenvalues, the
+# condition number, the characteristics and the consistency check, whose
+# ranks come from dgtpu.diagnostics.run_diagnostics(dg, dg.levels[-1])
+# after setting dg.levels[-1].Epsilon = 1e-3 (the manufactured solution is
+# divergence-free, so Epsilon is a roundoff number and the rank test would
+# not run)
+DGTPU_DIAG = {"poisson": {"min_eig": 4.934824092579778, "max_eig": 4633.134555577272,
+                          "cond": 938.8651892470231, "spd": True,
+                          "diag_dominant": False, "orthonormal": False,
+                          "rho_gs": 0.9831790866667758},
+              "stokes_local": {"min_eig": -0.04102666103514897, "max_eig": 88.55216556611492,
+                               "cond": 84201.79139283224, "spd": False,
+                               "diag_dominant": False, "rho_gs": 2.8035267782096294},
+              "stokes_global": {"min_eig": -0.04102666103514482, "max_eig": 88.55216556611468,
+                                "cond": 84201.79139284494, "spd": False,
+                                "diag_dominant": False, "Epsilon": 1.5119890743373657e-31,
+                                "rank": 63, "rank_aug": 63}}
+CHECKS = ("check eigenvalues", "check condition number", "check characteristics",
+          "check orthonormality", "check iteration matrix", "check consistency")
+FVM_REL_TOL = 1e-10        # the port's FVM routes vs dgtpu's: float64 both
+AMP_TOL = 1e-10            # amplitudes in [0, 1], absolute
+DIAG_REL_TOL = 1e-8        # dense host checks of the same float64 operator
+NATIVE_REL_TOL = 1e-12     # host C++ sweeps vs the plain torch ones
+
+
+def diagnostics_differ(got, ref):
+    """The keys where ``got`` misses dgtpu's ``ref``: booleans and ranks
+    equal, Epsilon within 1e-13 absolute, every other number within
+    DIAG_REL_TOL relative (complex eigenvalues too)."""
+    if got.keys() != ref.keys():
+        return sorted(set(got) ^ set(ref))
+    bad = []
+    for key, want in ref.items():
+        have = got[key]
+        if isinstance(want, (bool, int)):
+            ok = have == want
+        elif key == "Epsilon":
+            ok = abs(have - want) < 1e-13
+        else:
+            ok = abs(have - want) <= DIAG_REL_TOL * abs(want)
+        if not ok:
+            bad.append(key)
+    return bad
+
+
+def other_route_phases(card, rng, l2_poisson8, stokes8, flagship):
+    """Phase 23: the routes ported last, on the card.  ``-fvm`` (64x64 p5
+    held to dgtpu's L2(u); the observed order from 16x16 to 32x32 p2); the
+    multigrid with FVM coarse levels in full precision (8x8 p1 and 32x32
+    p_grid 2 / p1, held to dgtpu's cycles and L2(u)) and its mixed -> full
+    fallback at 8x8; ``-amp`` (DG at 8x8 p5 and FVM at 8x8 p1, 101x101
+    modes, min and max of A1-A4 held to dgtpu's); the six check switches
+    (Poisson 8x8 p2, Stokes 4x4 in local and global order) held to dgtpu's;
+    the mixed route with the physical-element orthonormal basis (Poisson
+    8x8 p5, Stokes 8x8: graphed, held to the standard basis's routes
+    ``l2_poisson8`` and ``stokes8`` within L2_REL_TOL, with the launches of
+    their kernels and the cycle's graph against eager bit for bit); the
+    8x8 p5 mixed route twice with caching on (the second run loads every
+    level and gives the same L2(u) bit for bit); and the host C++ kernels
+    against the plain torch ones on ``flagship``'s 8x8 p5 operator.
+    Returns {path: launch counts} of the orthonormal and cached routes."""
+    import numpy as np
+    import torch
+    import yaml
+    from dgtpu_torch import api, native
+    from dgtpu_torch.__main__ import main as cli
+    from dgtpu_torch.diagnostics import run_diagnostics
+    from dgtpu_torch.ops import soa
+    from dgtpu_torch.ops import stokes_soa as ss
+    from dgtpu_torch.ops.smoothers import block_gauss_seidel, block_jacobi
+    from dgtpu_torch.solvers.amplification import calculate_amplification
+    from dgtpu_torch.utils import caching
+    t_phase = time.perf_counter()
+    paths = {}
+    dev = ["--device", "cuda", "--silent"]
+
+    def dump(tmp, name, params):
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            yaml.safe_dump(params, f)
+        return path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- -fvm -----------------------------------------------------------
+        t0 = time.perf_counter()
+        dg = cli(["-fvm", "-f", "Rectangle_64X64_nPoly5.xyz", "--p-grid", "5"] + dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rel = abs(dg.L2_error_u - DGTPU_FVM_L2_64) / DGTPU_FVM_L2_64
+        print(f"[23] -fvm 64x64 p5 ({dg.levels[-1].N} cells, dense LU): residual "
+              f"{dg.residual:.3e}, L1(u) {dg.L1_error_u:.9e}, L2(u) {dg.L2_error_u:.9e} "
+              f"(dgtpu {DGTPU_FVM_L2_64:.9e}, rel {rel:.2e}), solve "
+              f"{dg.solve_seconds:.3f} s, setup + solve {wall:.2f} s ({card})", flush=True)
+        if not rel < FVM_REL_TOL:
+            raise AssertionError(f"-fvm 64x64 L2(u) off dgtpu's: {rel:.3e}")
+        errs = {}
+        for n in (16, 32):
+            dg = cli(["-fvm", "-f", f"Rectangle_{n}X{n}_nPoly2.xyz", "--p-grid", "2"] + dev)
+            errs[n] = dg.L2_error_u
+        order = math.log2(errs[16] / errs[32])
+        print(f"[23] -fvm observed order 16x16 -> 32x32 p2: {order:.4f} (L2(u) "
+              f"{errs[16]:.9e}, {errs[32]:.9e})", flush=True)
+        if not order > 1.5:
+            raise AssertionError(f"-fvm is not second order: {order:.3f}")
+
+        # -- the multigrid with FVM coarse levels ---------------------------
+        use_fvm = {"solver.multigrid.polynomial coarsening.enabled": False,
+                   "solver.multigrid.geometric coarsening.enabled": True,
+                   "solver.multigrid.geometric coarsening.use FVM": True,
+                   "solver.multigrid.geometric coarsening.coarsening factors": 2}
+        seen = _Messages()
+        logger = logging.getLogger("dgtpu_torch.api")
+        for n, pg, ps, precision in ((8, 1, 1, "full"), (32, 2, 1, "full"),
+                                     (8, 1, 1, "mixed")):
+            path = write_paramfile(tmp, f"use_fvm_{n}_{precision}.yml", **use_fvm, **{
+                "grid.filename": f"Rectangle_{n}X{n}_nPoly{pg}.xyz",
+                "grid.polynomial degree": pg, "solution.u.polynomial degree": ps,
+                "performance.precision": precision, "logging.loglevel": "WARNING"})
+            seen.messages.clear()
+            logger.addHandler(seen)
+            try:
+                dg = cli(["-m", "--device", "cuda", "--paramfile", path])
+            finally:
+                logger.removeHandler(seen)
+            torch.cuda.synchronize()
+            cycles, l2 = DGTPU_USE_FVM[n]
+            rel = abs(dg.L2_error_u - l2) / l2
+            kinds = [lv.discretization for lv in dg.levels]
+            fell_back = [m for m in seen.messages if m.endswith("running full precision")]
+            print(f"[23] -m precision {precision}, use FVM, {n}x{n} p_grid {pg} p{ps} "
+                  f"(levels {kinds}): {dg.cycle_kind}, {dg.cycles} cycles (dgtpu "
+                  f"{cycles}), residual {dg.solve_residual:.3e}, L2(u) "
+                  f"{dg.L2_error_u:.9e} (rel to dgtpu {rel:.2e}), solve "
+                  f"{dg.solve_seconds:.3f} s"
+                  + (f"; logged {fell_back[0]!r}" if fell_back else "") + f" ({card})",
+                  flush=True)
+            if kinds != ["fvm", "fvm", "dg"] or dg.cycle_kind != "full precision":
+                raise AssertionError(f"the use-FVM route ran {kinds}, {dg.cycle_kind}")
+            if dg.cycles != cycles or not rel < FVM_REL_TOL:
+                raise AssertionError(f"use-FVM {n}x{n}: {dg.cycles} cycles, L2 rel {rel:.3e}")
+            if precision == "mixed" and not fell_back:
+                raise AssertionError("the mixed use-FVM route did not fall back to full")
+
+        # -- -amp -----------------------------------------------------------
+        lvl = api.DGFEM(device="cuda", solve_direct=True, paramfile=write_paramfile(
+            tmp, "amp_dg.yml", **{"logging.loglevel": "ERROR"})).levels[-1]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        amp = {"dg": calculate_amplification(lvl, tmp, n_theta=101, export=False)}
+        torch.cuda.synchronize()
+        seconds = {"dg": time.perf_counter() - t1}
+        t1 = time.perf_counter()
+        dg = cli(["-amp", "--fvm-discretization", "-f", "Rectangle_8X8_nPoly1.xyz",
+                  "--p-grid", "1", "--p-solution", "0"] + dev)
+        torch.cuda.synchronize()
+        seconds["fvm"] = time.perf_counter() - t1
+        with np.load(os.path.join(dg.results_dir, "amplification.npz")) as npz:
+            amp["fvm"] = {k: npz[k] for k in npz.files}
+        for kind, out in amp.items():
+            got = {q: (float(out[f"A{q}"].min()), float(out[f"A{q}"].max()))
+                   for q in range(1, 5)}
+            off = max(abs(a - b) for q in got for a, b in zip(got[q], DGTPU_AMP[kind][q]))
+            where = ("DG 8x8 p5 (2304 unknowns)" if kind == "dg"
+                     else "FVM 8x8 p_grid 1, p_solution 0, through the CLI")
+            print(f"[23] -amp {where}: 101x101 modes in one complex128 batch, "
+                  f"{seconds[kind]:.3f} s; (min, max) of A1-A4 "
+                  f"{ {q: (round(a, 12), round(b, 12)) for q, (a, b) in got.items()} }, "
+                  f"largest difference from dgtpu's {off:.2e} ({card})", flush=True)
+            if not off < AMP_TOL:
+                raise AssertionError(f"-amp {kind}: A1-A4 off dgtpu's by {off:.3e}")
+
+        # -- the check switches ----------------------------------------------
+        poisson = write_paramfile(tmp, "checks_poisson.yml", **{
+            "grid.filename": "Rectangle_8X8_nPoly2.xyz", "grid.polynomial degree": 2,
+            "solution.u.polynomial degree": 2, "logging.loglevel": "ERROR",
+            **{f"problem.{c}": True for c in CHECKS}})
+        cases = {"poisson": (poisson, CHECKS)}
+        for ordering, flags in (("local", CHECKS[:5]), ("global", CHECKS[:3] + CHECKS[5:])):
+            params = stokes_params(4)
+            params["performance"]["precision"] = "full"
+            params["solution"]["ordering"] = ordering
+            params["problem"].update({c: True for c in flags})
+            cases[f"stokes_{ordering}"] = (dump(tmp, f"checks_{ordering}.yml", params), flags)
+        for name, (path, flags) in cases.items():
+            t0 = time.perf_counter()
+            dg = cli(["-d", "--paramfile", path] + dev)
+            got = dict(dg.diagnostics)
+            if name == "stokes_global":
+                dg.levels[-1].Epsilon = 1e-3
+                got.update({k: v for k, v in run_diagnostics(dg, dg.levels[-1]).items()
+                            if k.startswith("rank")})
+            bad = diagnostics_differ(got, DGTPU_DIAG[name])
+            shown = {k: v if isinstance(v, (bool, int)) or np.iscomplexobj(v)
+                     else float(f"{v:.10g}") for k, v in got.items()}
+            print(f"[23] check switches, {name} ({dg.levels[-1].rhs.numel()} unknowns, "
+                  f"{len(flags)} switches): {shown}, "
+                  f"{time.perf_counter() - t0:.2f} s; off dgtpu's: {bad or 'none'}",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"check switches {name}: {bad} differ from dgtpu's")
+
+        # -- the mixed route in the physical-element orthonormal basis -------
+        ortho = {"problem.orthonormal on physical element": True,
+                 "performance.precision": "mixed", "logging.loglevel": "ERROR"}
+        reset_counts()
+        dg = cli(["-m", "--device", "cuda", "--paramfile",
+                  write_paramfile(tmp, "ortho_poisson.yml", **ortho)])
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in soa.KERNELS}
+        rel = abs(dg.L2_error_u - l2_poisson8) / l2_poisson8
+        print(f"[23] -m mixed, orthonormal basis, 8x8 p5: {dg.cycle_kind}, "
+              f"{dg.outer_rounds} outer rounds, residual {dg.solve_residual:.3e}, "
+              f"L2(u) {dg.L2_error_u:.9e} (rel to the standard basis's {rel:.2e}), "
+              f"{solve_text(dg)}; launches {launches} ({card})", flush=True)
+        if dg.cycle_kind != "SoA" or not dg.solve_residual < RES_TOL or not rel < L2_REL_TOL:
+            raise AssertionError("the orthonormal Poisson route missed its bars")
+        not_launched(launches, list(launches), "the orthonormal 8x8 p5 route")
+        paths["poisson_8x8_orthonormal"] = launches
+        check_graph("[23] 8x8 p5 SoA cycle, orthonormal basis", cycle_of(dg),
+                    dg.levels[-1].rhs.numel(), 2, rng)
+        params = stokes_params(8)
+        params["problem"]["orthonormal on physical element"] = True
+        reset_counts()
+        dg = cli(["-m", "--device", "cuda", "--silent", "--paramfile",
+                  dump(tmp, "ortho_stokes.yml", params)])
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in ss.CYCLE_KERNELS}
+        rel = {v: abs(getattr(dg, f"L2_error_{v}") - getattr(stokes8, f"L2_error_{v}"))
+               / getattr(stokes8, f"L2_error_{v}") for v in "uvp"}
+        print(f"[23] Stokes -m mixed, orthonormal u and p bases, 8x8: {dg.cycle_kind}, "
+              f"inner {dg.inner}, outer rounds {dg.rounds}, residual "
+              f"{dg.solve_residual:.3e}, L2 rel to the standard basis's "
+              f"{ {v: float(f'{r:.2e}') for v, r in rel.items()} }, {solve_text(dg)}; "
+              f"launches {launches} ({card})", flush=True)
+        if not dg.solve_residual < RES_TOL or not all(r < L2_REL_TOL for r in rel.values()):
+            raise AssertionError("the orthonormal Stokes route missed its bars")
+        not_launched(launches, list(launches), "the orthonormal 8x8 Stokes route")
+        paths["stokes_8x8_orthonormal"] = launches
+        check_graph("[23] 8x8 Stokes W-cycle, orthonormal bases", stokes_cycle_of(dg),
+                    dg.levels[-1].rhs.numel(), 2, rng)
+
+        # -- caching ----------------------------------------------------------
+        saved_root, saved_assemble = caching.CACHE_ROOT, api.assemble_poisson
+        caching.CACHE_ROOT = os.path.join(tmp, "cache")
+        assembled = []
+
+        def counted(*args, **kw):
+            assembled.append(1)
+            return saved_assemble(*args, **kw)
+
+        api.assemble_poisson = counted
+        runs = []
+        try:
+            path = write_paramfile(tmp, "cached.yml", **{
+                "caching.enabled": True, "performance.precision": "mixed",
+                "logging.loglevel": "ERROR"})
+            for _ in range(2):
+                assembled.clear()
+                t0 = time.perf_counter()
+                dg = api.DGFEM(device="cuda", paramfile=path, solve_multigrid=True)
+                torch.cuda.synchronize()
+                setup = time.perf_counter() - t0
+                reset_counts()
+                dg.solve()
+                torch.cuda.synchronize()
+                runs.append((dg, setup, len(assembled), counts()))
+        finally:
+            caching.CACHE_ROOT, api.assemble_poisson = saved_root, saved_assemble
+        (cold, cold_s, cold_n, _), (warm, warm_s, warm_n, launches) = runs
+        print(f"[23] -m mixed 8x8 p5 with caching on: setup {cold_s:.3f} s cold "
+              f"({cold_n} of {len(cold.levels)} levels assembled), {warm_s:.3f} s warm "
+              f"({warm_n} assembled); L2(u) {cold.L2_error_u!r} and "
+              f"{warm.L2_error_u!r}, {solve_text(warm)} ({card})", flush=True)
+        if cold_n != len(cold.levels) or warm_n != 0:
+            raise AssertionError("the second cached run did not load every level")
+        if warm.L2_error_u != cold.L2_error_u:
+            raise AssertionError("the cached run's L2(u) differs from the assembled run's")
+        paths["poisson_8x8_cached"] = {k: v for k, v in launches.items()}
+
+    # -- the host C++ kernels ------------------------------------------------
+    op = flagship.levels[-1].op
+    rhs = flagship.levels[-1].rhs
+    x = torch.as_tensor(rng.standard_normal(rhs.numel()), device=rhs.device)
+    t0 = time.perf_counter()
+    ns = native.NativeStencil(op)
+    build_s = time.perf_counter() - t0
+    pairs = {"matvec": (ns.matvec(x), op.matvec(x)),
+             "symmetric GS": (ns.gauss_seidel(rhs, x, "symmetric"),
+                              block_gauss_seidel(op, rhs, x, direction="symmetric")),
+             "Jacobi (0.8)": (ns.jacobi(rhs, x, omega=0.8),
+                              block_jacobi(op, rhs, x, omega=0.8))}
+    errs = {}
+    for name, (host, plain) in pairs.items():
+        plain = plain.cpu().numpy()
+        errs[name] = float(np.abs(host - plain).max() / np.abs(plain).max())
+    print(f"[23] native host C++ kernels (g++ build and load {build_s:.2f} s) against the "
+          f"plain torch ones on the 8x8 p5 operator: max rel err "
+          f"{ {k: float(f'{v:.2e}') for k, v in errs.items()} } (bar {NATIVE_REL_TOL:g})",
+          flush=True)
+    if not all(e < NATIVE_REL_TOL for e in errs.values()):
+        raise AssertionError(f"the native kernels differ from the plain ones: {errs}")
+    print(f"[23] the routes ported last took {time.perf_counter() - t_phase:.1f} s of wall "
+          f"time ({card})", flush=True)
+    return paths
+
+
 def check_rolled(worst):
     """Each rolled kernel's worst error so far within ROLLED_REL_TOL."""
     from dgtpu_torch.ops import vcycle
@@ -1975,6 +2344,7 @@ def main():
     if not l2_rel < L2_REL_TOL:
         raise AssertionError("8x8 L2(u) differs from dgtpu's")
     not_launched(launches, list(launches), "the 8x8 p5 route")
+    l2_poisson8 = dg8.L2_error_u
 
     # -- 6: the same route at 64x64: the streamed hybrid --------------------
     from dgtpu_torch import api
@@ -2222,10 +2592,14 @@ def main():
     if launched:
         raise AssertionError(f"phase 22 launched kernels: {launched}")
 
+    # -- 23: -fvm, the FVM levels, -amp, the check switches, the orthonormal
+    # basis, caching and the host C++ kernels ---------------------------------
+    other_paths = other_route_phases(card, rng, l2_poisson8, dg8, flagship)
+
     paths = {"poisson_8x8": launches, "poisson_64x64_hybrid": launches64,
              "poisson_64x64_hybrid_bf16": launches64_bf16,
              "stokes_8x8": stokes_launches, "stokes_32x32": stokes_launches32,
-             "stokes_32x32_hybrid": launches32h, **rolled_paths}
+             "stokes_32x32_hybrid": launches32h, **rolled_paths, **other_paths}
     rolled_site = "dgtpu/ops/pallas_vcycle.py:326"
     replaces = {
         soa.half_sweep: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739",

@@ -1,18 +1,23 @@
 """CLI entry point — dgtpu's flag surface plus ``--device``.
 
     python -m dgtpu_torch -m [--precision full|mixed] [--device cuda|cpu] [options]
-    python -m dgtpu_torch -d
+    python -m dgtpu_torch -d [--check-eigenvalues] [--check-condition-number]
     python -m dgtpu_torch -s --smoother block_gauss_seidel
     python -m dgtpu_torch -k
     python -m dgtpu_torch -amg
+    python -m dgtpu_torch -fvm
+    python -m dgtpu_torch -amp --dg-discretization|--fvm-discretization
 
 Ported for Poisson and Stokes (``problem.type: Stokes`` in the paramfile,
 local or global ordering): the multigrid in full precision (the
-paramfile's default) and in mixed precision, the direct solve, the
-stand-alone smoother solve (``--smoother distributive_gauss_seidel`` for
-global-order Stokes), the Krylov solve and algebraic multigrid.  Any other
-solver or option (``-fvm``, ``-amp``, the check flags) raises
-NotImplementedError naming its ROADMAP item.
+paramfile's default) and in mixed precision, with FVM coarse levels
+(``geometric coarsening: use FVM``), the direct solve, the stand-alone
+smoother solve (``--smoother distributive_gauss_seidel`` for global-order
+Stokes), the Krylov solve, algebraic multigrid, the finite-volume solve and
+the smoother amplification analysis; the paramfile's check switches, the
+physical-element orthonormal basis and operator caching.  Sharding
+(``--shards``) and the plots (``--plot-sparsity-pattern``, ParaView) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 import argparse

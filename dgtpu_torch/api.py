@@ -1,23 +1,30 @@
 """DGFEM orchestrator — the port of ``dgtpu/api.py``: for Poisson and
 Stokes (local or global ordering) the multigrid (full and mixed precision),
-direct, smoother, Krylov (``-k``) and algebraic multigrid (``-amg``) solves.
+direct, smoother, Krylov (``-k``) and algebraic multigrid (``-amg``) solves,
+the finite-volume solve (``-fvm``) and the smoother amplification analysis
+(``-amp``).
 
 Builds settings + manufactured solution, reads the grid, constructs the
-multigrid hierarchy (penalty / polynomial / geometric coarsening) with its
-transfers (a single level for the other solves, unless the Krylov solve is
+multigrid hierarchy (penalty / polynomial / geometric coarsening, the
+latter optionally down through finite-volume levels) with its transfers (a
+single level for the other solves, unless the Krylov solve is
 preconditioned by multigrid), assembles every level in float64 on the
-chosen device, solves, and post-processes: residual norms, the Stokes
-pressure mean shift, modal->nodal values, L1/L2 MMS errors, VTK export and
-``summary.txt`` in the reference's schema.  The mixed-precision route runs
-float32 cycles (SoA, streamed hybrid or rolled) inside float64 defect
-correction, optionally seeded by an FMG pass; Stokes retries with
-GMRES-wrapped cycles when the plain refinement stalls, and runs the
-full-precision multigrid where no Stokes cycle builds, as dgtpu does.  The
-full-precision, direct, smoother, Krylov and AMG routes run in float64
-plain torch on the same device.
+chosen device (from the operator cache when ``caching: enabled``, in the
+physical-element orthonormal basis when the problem asks for it), runs the
+opt-in operator checks, solves, and post-processes: residual norms, the
+Stokes pressure mean shift, modal->nodal values, L1/L2 MMS errors, VTK
+export and ``summary.txt`` in the reference's schema.  The mixed-precision
+route runs float32 cycles (SoA, streamed hybrid or rolled) inside float64
+defect correction, optionally seeded by an FMG pass; Stokes retries with
+GMRES-wrapped cycles when the plain refinement stalls; where no mixed cycle
+builds (a Stokes cycle, a finite-volume transfer) the route runs the
+full-precision multigrid, as dgtpu's does.  The full-precision, direct,
+smoother, Krylov, AMG, FVM and amplification routes run in float64 plain
+torch on the same device.
 
-Every branch of dgtpu's orchestrator that this slice does not port raises
-NotImplementedError naming its ROADMAP item; nothing falls back to the CPU.
+The branches of dgtpu's orchestrator that the port does not have yet
+(sharding over several devices, the plots and ParaView) raise
+NotImplementedError naming their ROADMAP item; nothing falls back to the CPU.
 """
 
 import math
@@ -26,10 +33,12 @@ import os
 import numpy as np
 import torch
 
+from dgtpu_torch.diagnostics import run_diagnostics
 from dgtpu_torch.geometry import Geometry
 from dgtpu_torch.io.vtk import elements_to_vtk, grid_to_vtk, nodal_lattice
 from dgtpu_torch.level import CoarseGridLevel, GridLevel
 from dgtpu_torch.mms import ManufacturedSolution
+from dgtpu_torch.models.fvm import assemble_poisson_fvm, fvm_cell_centers
 from dgtpu_torch.models.poisson import assemble_poisson
 from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        StokesPolynomialTransfer, assemble_stokes,
@@ -37,6 +46,7 @@ from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        pressure_mean_shift,
                                        reorder_global_to_local)
 from dgtpu_torch.ops.graphs import CycleGraph
+from dgtpu_torch.ops.orthonormal import element_bases
 from dgtpu_torch.ops.smoothers import element_colors
 from dgtpu_torch.ops.soa import SoAVCycle
 from dgtpu_torch.ops.stokes_soa import SoAStokesVCycle
@@ -46,11 +56,13 @@ from dgtpu_torch.ops.transfer import make_transfer
 from dgtpu_torch.ops.vcycle import RolledVCycle
 from dgtpu_torch.settings import Settings, load_params
 from dgtpu_torch.solvers.amg import solve_amg
+from dgtpu_torch.solvers.amplification import calculate_amplification
 from dgtpu_torch.solvers.direct import solve_direct
 from dgtpu_torch.solvers.krylov import solve_krylov
 from dgtpu_torch.solvers.multigrid import MultigridSolver
 from dgtpu_torch.solvers.refinement import make_refined_solver
 from dgtpu_torch.solvers.relaxation_driver import residual_tracked_smoother
+from dgtpu_torch.utils import caching
 from dgtpu_torch.utils.logger import Logger
 from dgtpu_torch.utils.norms import lp_norm
 from dgtpu_torch.utils.timer import Timer, synchronize
@@ -58,10 +70,6 @@ from dgtpu_torch.utils.timer import Timer, synchronize
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # results/ and postprocessing/dgtpu_torch/ are written below this directory
 OUTPUT_ROOT = REPO_ROOT
-
-_CHECK_FLAGS = ("check_condition_number", "check_eigenvalues",
-                "check_consistency", "check_characteristics",
-                "check_orthonormality", "check_iteration_matrix")
 
 
 def _wants_mg_precond(settings):
@@ -73,26 +81,12 @@ def _wants_mg_precond(settings):
 
 
 def _unsupported(settings, method):
-    """The first configuration choice this slice does not port, as
+    """The first configuration choice the port does not have yet, as
     (what, the title of its ROADMAP Queue 1 item), or None."""
     s = settings
-    mg = s.solver.multigrid
     perf = getattr(s, "performance", None)
-    if method not in ("multigrid", "direct", "smoother", "krylov", "pyamg"):
-        return f"solver method {method!r}", "The other solver routes"
     if int(getattr(perf, "n_shards", 1) or 1) > 1 and method == "multigrid":
         return "performance.n_shards > 1", "Multi-GPU"
-    if (method == "multigrid" or _wants_mg_precond(s)) \
-            and mg.geometric_coarsening.enabled and mg.geometric_coarsening.use_FVM:
-        return "an FVM coarse level", "The other solver routes"
-    if s.caching.enabled:
-        return "caching.enabled", "Operator caching"
-    if getattr(s.problem, "orthonormal_on_physical_element", False):
-        return "problem.orthonormal_on_physical_element", \
-            "The physical-element orthonormal basis"
-    for flag in _CHECK_FLAGS:
-        if getattr(s.problem, flag, False):
-            return f"problem.{flag}", "The other solver routes"
     if getattr(s.visualization, "plot_sparsity_pattern", False) \
             or s.visualization.automatically_open_paraview:
         return "visualization plots / ParaView", "I/O and tools"
@@ -205,16 +199,17 @@ class DGFEM:
             # hierarchy; one cycle per Krylov iteration applies M
             self._build_multigrid_hierarchy()
         else:
-            self.levels.append(self._level(self.P_sol, self.sigma))
+            self.levels.append(self._level(self.P_sol, self.sigma,
+                                           discretization=s.solver.discretization))
         for idx, lvl in enumerate(self.levels):
             self.logger.debug(
                 f"grid number {idx+1}: P_grid={lvl.P_grid}, P_sol={lvl.P_sol}, "
                 f"sigma={lvl.sigma}, Ni={lvl.Ni}, Nj={lvl.Nj}")
         self._assemble_all()
 
-    def _level(self, P_sol, sigma):
+    def _level(self, P_sol, sigma, discretization="dg"):
         return GridLevel(self.geometry, self.settings, self.vars, P_sol, sigma,
-                         device=self.device)
+                         device=self.device, discretization=discretization)
 
     def _build_multigrid_hierarchy(self):
         """Mirror of dgfem.assemble_multigrid_operators (dgfem.py:269-376).
@@ -277,6 +272,22 @@ class DGFEM:
         if mg.geometric_coarsening.enabled:
             if not self.levels:
                 self.levels.append(self._level(self.P_sol, self.sigma))
+            use_fvm = bool(mg.geometric_coarsening.use_FVM)
+            if use_fvm:
+                # an FVM level on the finest DG level's cells, then the
+                # geometric levels below it are FVM too
+                dg_above = self.levels[0]
+                # under the inverse-mass premultiply the DG residual is
+                # mass-scaled: the cell area / 4 turns it into the FVM
+                # integral form (dgtpu's row scale)
+                scale = (dg_above.gt["A"] / 4.0
+                         if s.problem.multiply_inverse_mass_matrix else None)
+                self.levels[0:0] = [self._level(self.P_sol, self.sigma,
+                                                discretization="fvm")]
+                self.transfers[0:0] = [make_transfer(
+                    "dg_to_fvm", p_fine=dg_above.P_sol["u"], row_scale=scale,
+                    device=dev)]
+                self.transfer_types[0:0] = ["geometric"]
             cfs = mg.geometric_coarsening.coarsening_factors
             cfs = (sorted(map(int, str(cfs).split(",")), reverse=True)
                    if not isinstance(cfs, int) else [cfs])
@@ -288,10 +299,15 @@ class DGFEM:
                     "geometric coarsening factors must form a contiguous "
                     f"2x chain down to the fine grid (e.g. '8,4,2'); got {cfs}")
             base = self.levels[0]
-            coarse = [CoarseGridLevel(self.geometry, base, s, self.vars, cf,
-                                      device=dev) for cf in cfs]
+            coarse = [CoarseGridLevel(self.geometry, base, s, self.vars, cf, device=dev,
+                                      discretization="fvm" if use_fvm else "dg")
+                      for cf in cfs]
             self.levels[0:0] = coarse
-            if "p" in self.vars:
+            if use_fvm:
+                geo_transfers = [make_transfer(
+                    "geometric_fvm", Ni_c=self.levels[k].Ni, Nj_c=self.levels[k].Nj,
+                    device=dev) for k in range(len(coarse))]
+            elif "p" in self.vars:
                 geo_transfers = [StokesGeometricTransfer(
                     self.levels[k].Ni, self.levels[k].Nj,
                     pu=self.levels[k].P_sol["u"], pp=self.levels[k].P_sol["p"],
@@ -308,14 +324,30 @@ class DGFEM:
             raise ValueError("multigrid requires at least one coarsening type enabled")
 
     def _assemble_all(self):
+        """Assemble every level (the right-hand side on the finest); a DG
+        Poisson level is loaded from the operator cache when caching is on
+        and the file holds what the level needs (Stokes levels cache inside
+        ``assemble_stokes``); then the opt-in operator checks."""
         finest = self.levels[-1]
         direct = self.settings.solver.method == "direct"
+        problem = self.settings.problem.type
         for lvl in self.levels:
             mms = self.mms if lvl is finest else None
             if "p" in self.vars:
                 assemble_stokes(lvl, mms, direct=direct)
+            elif lvl.discretization == "fvm":
+                lvl.op, lvl.rhs = assemble_poisson_fvm(lvl, self.mms)
             else:
-                lvl.op, lvl.rhs, lvl.inv_mass = assemble_poisson(lvl, mms)
+                cached = caching.load_operator(lvl, problem)
+                if cached is not None and (cached[1] is not None or mms is None):
+                    lvl.op, lvl.rhs, lvl.inv_mass = cached
+                    # the modal coefficients are in the level's basis
+                    element_bases(lvl, vars=("u",))
+                    self.logger.debug("loaded assembled system from cache")
+                else:
+                    lvl.op, lvl.rhs, lvl.inv_mass = assemble_poisson(lvl, mms)
+                    caching.save_operator(lvl, problem, lvl.op, lvl.rhs, lvl.inv_mass)
+        run_diagnostics(self, finest)
 
     # ------------------------------------------------------------------ solve
 
@@ -326,8 +358,11 @@ class DGFEM:
         self.logger.debug(f"Solving with {method} method ...")
         self.graph_seconds = 0.0
         with Timer() as t:
-            if method == "direct":
+            if method in ("direct", "finite_volume_method"):
                 u_modal = solve_direct(finest.op, finest.rhs)
+            elif method == "smoother_amplification":
+                # the analysis dict, before any post-processing, as dgtpu
+                return calculate_amplification(finest, self.results_dir)
             elif method == "smoother":
                 u_modal = self._solve_smoother(finest)
             elif method == "krylov":
@@ -337,7 +372,7 @@ class DGFEM:
                 variant = str(getattr(getattr(s.solver, "amg", None), "variant", "sa"))
                 u_modal, self.amg_info = solve_amg(finest.op, finest.rhs,
                                                    variant=variant)
-            else:
+            elif method == "multigrid":
                 precision = str(getattr(s.performance, "precision", "full"))
                 if precision == "mixed":
                     try:
@@ -351,6 +386,8 @@ class DGFEM:
                 if precision != "mixed":
                     u_modal, res, n = self._solve_multigrid_full(finest)
                     self.solve_residual, self.cycles = res, n
+            else:
+                raise NotImplementedError(method)
             synchronize(u_modal)
         self.solve_seconds = t.elapsed() - self.graph_seconds
         if method == "multigrid":
@@ -454,6 +491,15 @@ class DGFEM:
         tol = min(float(mg.tolerance), 1e-10)
         dims = [(l.Nj, l.Ni) for l in self.levels]
         stokes = "p" in self.vars
+        # no mixed cycle has the FVM transfers: refuse before any cycle is
+        # built, so solve() runs the full-precision multigrid (dgtpu's check)
+        unsupported = ({t.kind for t in self.transfers}
+                       - {"penalty", "polynomial", "geometric"})
+        if unsupported:
+            raise NotImplementedError(
+                "mixed precision: the float32 cycles do not support transfer "
+                f"kind(s) {sorted(unsupported)} (FVM coarse level); running full "
+                "precision")
         ops = [l.op for l in self.levels]
         coarse = mg.coarse_grid_solver in ("direct", "amg")
         budget = stream_budget(self.device)
@@ -569,14 +615,31 @@ class DGFEM:
         self.logger.info(f"L2 norm of the residual (modal): "
                          f"{self.residual / residual_0:.6e} (normalized)")
 
+        if finest.discretization == "fvm":
+            # cell averages against the exact solution at the cell centers
+            exact = self.mms.u(*fvm_cell_centers(finest))
+            self.L1_error_u = float(lp_norm(u_modal - exact, 1))
+            self.L2_error_u = float(lp_norm(u_modal - exact, 2))
+            self.logger.info(f"The norms of the error (nodal) are: "
+                             f"L1={self.L1_error_u:.6e}, L2={self.L2_error_u:.6e}")
+            self.u_nodal = u_modal.cpu().numpy()
+            self._write_summary_results()
+            return u_modal
+
         u_local = (reorder_global_to_local(finest, u_modal)
                    if s.solution.ordering == "global" else u_modal)
         u_el = u_local.reshape(finest.N, finest.N_DOF_sol_tot)
         if stokes and s.solver.method != "smoother":
             u_el = pressure_mean_shift(finest, u_el)
 
-        # modal -> nodal (dgfem.py:201-209), batched
+        # modal -> nodal (dgfem.py:201-209), batched; per-element nodal
+        # tables under the physical-element orthonormal basis (element.py:43)
+        eb = getattr(finest, "element_basis", None) or {}
+
         def to_nodal(modal, var):
+            if eb.get(var) is not None:
+                Vg_e = eb[var].apply(finest.quad.V_sol_grid[var])     # (N, G, B)
+                return torch.einsum("ngb,nb->ng", Vg_e, modal)
             Vg = torch.as_tensor(finest.quad.V_sol_grid[var], device=self.device)
             return modal @ Vg.T
 

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from dgtpu_torch.models.stokes import StokesGlobalOperator
+from dgtpu_torch.ops.orthonormal import ElementBasis
 from dgtpu_torch.ops.stencil import StencilOperator
 from dgtpu_torch.ops.transfer import TransferOp
 
@@ -18,22 +19,36 @@ def from_dgtpu_arrays(levels, transfers, types, dims, device="cpu"):
     """Port objects from numpy copies of a dgtpu hierarchy.
 
     ``levels``: per level (coarsest first) a mapping with the
-    ``StencilOperator`` fields ``blocks`` (N, 5, B, B), ``nbr`` (N, 5) and
-    ``mask`` (N, 5); ``transfers``: per transfer a mapping with the
-    ``TransferOp`` fields ``kind``, ``R`` and ``P``; ``types``: the transfer
-    types (one per transfer); ``dims``: [(Nj, Ni)] per level.
-    Returns ``(ops, transfers)``: StencilOperators and TransferOps in float64
-    on ``device``.
+    ``StencilOperator`` fields ``blocks`` (N, 5, B, B; 1x1 on an FVM level),
+    ``nbr`` (N, 5) and ``mask`` (N, 5); ``transfers``: per transfer a mapping
+    with the ``TransferOp`` fields ``kind``, ``R``, ``P`` and, for a
+    ``dg_to_fvm`` transfer under the inverse-mass premultiply,
+    ``row_scale``; ``types``: the transfer types (one per transfer);
+    ``dims``: [(Nj, Ni)] per level.  Returns ``(ops, transfers)``:
+    StencilOperators and TransferOps in float64 on ``device``.
     """
     if not (len(levels) == len(dims) == len(transfers) + 1 == len(types) + 1):
         raise ValueError("need one transfer and one type between each pair of "
                          "levels, and one (Nj, Ni) per level")
     ops = [_stencil(lv, nj * ni, device) for lv, (nj, ni) in zip(levels, dims)]
-    # transfers[k] sits between levels k and k + 1: its tile grid is level k's
-    out = [TransferOp(t["kind"], np.array(t["R"]), np.array(t["P"]), device=device,
-                      Ni_t=ni, Nj_t=nj)
-           for t, (nj, ni) in zip(transfers, dims)]
+    # transfers[k] sits between levels k and k + 1: its tile grid is level
+    # k's (2x2 cells of it for an FVM transfer's 4x4 fine / 2x2 coarse tiles)
+    out = []
+    for t, (nj, ni) in zip(transfers, dims):
+        tiles = (dict(Ni_t=ni // 2, Nj_t=nj // 2, cf_f=4, cf_c=2)
+                 if t["kind"] == "geometric_fvm" else dict(Ni_t=ni, Nj_t=nj))
+        row_scale = t.get("row_scale")
+        out.append(TransferOp(t["kind"], np.array(t["R"]), np.array(t["P"]),
+                              device=device, row_scale=None if row_scale is None
+                              else np.array(row_scale), **tiles))
     return ops, out
+
+
+def element_basis_from_arrays(level, fields):
+    """An ``ElementBasis`` on ``level`` (its device) from numpy copies of a
+    dgtpu ``ElementBasis``'s ``weights`` (N, B, B) and ``norms`` (N, B)."""
+    return ElementBasis(level, weights=np.array(fields["weights"], dtype=np.float64),
+                        norms=np.array(fields["norms"], dtype=np.float64))
 
 
 def stencil_from_arrays(fields, device="cpu"):

@@ -13,16 +13,22 @@ from dgtpu_torch.basis import QuadratureSet
 from dgtpu_torch.geometry import (FaceTopology, coarse_element_coords,
                                   coarse_geometry_terms, element_coords,
                                   geometry_terms, neighbor_map)
+from dgtpu_torch.utils import caching
 from dgtpu_torch.utils.logger import Logger
 
 
 class GridLevel:
+    """``discretization``: "dg" (modal SIP-DG) or "fvm" (cell-centered finite
+    volumes, ``models/fvm.py``: a 1x1 block per cell)."""
+
     def __init__(self, geometry, settings, vars, P_sol, sigma=None, gamma=None,
-                 device="cpu"):
+                 device="cpu", discretization="dg"):
         self.settings = settings
         self.logger = Logger(__name__, settings).logger
         self.device = torch.device(device)
         self.vars = list(vars)
+        self.discretization = discretization
+        self.coarsening_factor = None
 
         self.P_grid = geometry.P_grid
         self.N_grid = geometry.N_grid
@@ -76,8 +82,15 @@ class GridLevel:
     # -- construction helpers ------------------------------------------------
 
     def _element_coords(self, geometry):
-        return element_coords(geometry.x, geometry.y, self.Ni, self.Nj,
-                              self.P_grid)
+        """Per-element nodal coordinates, from the grid cache when caching is
+        on (content-addressed by the node lattice, ``utils/caching.py``)."""
+        key = (self.settings, geometry.x, geometry.y, self.Ni, self.Nj, self.P_grid)
+        cached = caching.load_element_coords(*key)
+        if cached is not None:
+            return cached
+        X, Y = element_coords(geometry.x, geometry.y, self.Ni, self.Nj, self.P_grid)
+        caching.save_element_coords(*key, X, Y)
+        return X, Y
 
     def _check_closure(self):
         if self.O_grid:
@@ -124,7 +137,7 @@ class CoarseGridLevel(GridLevel):
     """
 
     def __init__(self, geometry, fine_level, settings, vars, coarsening_factor,
-                 device="cpu"):
+                 device="cpu", discretization="dg"):
         self._fine = fine_level
         self._cf = coarsening_factor
 
@@ -153,9 +166,13 @@ class CoarseGridLevel(GridLevel):
             fine_level.P_grid, coarsening_factor)
         g.x, g.y = self._nodes_from_elements(self._Xc, self._Yc, g.Ni, g.Nj,
                                              g.P_grid)
-        super().__init__(g, settings, vars, dict(fine_level.P_sol),
-                         sigma=fine_level.sigma, gamma=fine_level.gamma,
-                         device=device)
+        # an FVM level carries one cell average per cell (P_sol 0)
+        P_sol = ({k: 0 for k in fine_level.P_sol} if discretization == "fvm"
+                 else dict(fine_level.P_sol))
+        super().__init__(g, settings, vars, P_sol, sigma=fine_level.sigma,
+                         gamma=fine_level.gamma, device=device,
+                         discretization=discretization)
+        self.coarsening_factor = coarsening_factor
 
     @staticmethod
     def _nodes_from_elements(X, Y, Ni, Nj, p_grid):

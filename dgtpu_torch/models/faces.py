@@ -27,8 +27,9 @@ class FaceData:
     side's own metric terms; normals point from L into R (element.py:96-102).
     """
 
-    def __init__(self, level, topo, var_quad, gt=None):
+    def __init__(self, level, topo, var_quad, gt=None, element_basis=None):
         gt = gt if gt is not None else level.gt
+        self.eb = element_basis
         dev = level.device
         g = gt[var_quad]
         sL, sR = topo.side_L, topo.side_R
@@ -56,8 +57,14 @@ class FaceData:
         self._var_quad = var_quad
         self.wJ = self.w_q[None, :] * self.J       # (F, nq)
 
-    def _per_face(self, table):
-        """Shared (nq, B) table -> (F, nq, B) broadcast view."""
+    def _per_face(self, table, elem_idx, var_basis):
+        """Shared (nq, B) table -> (F, nq, B): the element ``elem_idx``'s
+        per-element table where the physical-element orthonormal basis of
+        ``var_basis`` is active (face.py:43-59; ``element_basis`` is a
+        {var: ElementBasis} dict), else a broadcast view."""
+        eb = (self.eb or {}).get(var_basis)
+        if eb is not None:
+            return eb.apply(table)[torch.as_tensor(elem_idx, device=self._level.device)]
         table = torch.as_tensor(table, dtype=torch.float64,
                                 device=self._level.device)
         return table.expand(self.topo.n_faces, *table.shape)
@@ -66,17 +73,22 @@ class FaceData:
         """(V_L, V_R) trace Vandermondes of a basis, each (F, nq, B)."""
         q = self._level.quad
         sL, sR = self.topo.side_L, self.topo.side_R
-        return (self._per_face(q.V_sol_face[sL][var_basis][self._var_quad]),
-                self._per_face(q.V_sol_face[sR][var_basis][self._var_quad]))
+        return (self._per_face(q.V_sol_face[sL][var_basis][self._var_quad],
+                               self.topo.eL, var_basis),
+                self._per_face(q.V_sol_face[sR][var_basis][self._var_quad],
+                               self.topo.eR, var_basis))
 
     def grad_normal(self, var_basis):
         """(Gn_L, Gn_R): n . grad(phi) traces, each (F, nq, B)."""
         q = self._level.quad
         sL, sR = self.topo.side_L, self.topo.side_R
         out = []
-        for side_key, mt in ((sL, self.mt_L), (sR, self.mt_R)):
-            Vr = self._per_face(q.Vr_sol_face[side_key][var_basis][self._var_quad])
-            Vs = self._per_face(q.Vs_sol_face[side_key][var_basis][self._var_quad])
+        for side_key, mt, idx in ((sL, self.mt_L, self.topo.eL),
+                                  (sR, self.mt_R, self.topo.eR)):
+            Vr = self._per_face(q.Vr_sol_face[side_key][var_basis][self._var_quad],
+                                idx, var_basis)
+            Vs = self._per_face(q.Vs_sol_face[side_key][var_basis][self._var_quad],
+                                idx, var_basis)
             gx = Vr * mt["rx"][:, :, None] + Vs * mt["sx"][:, :, None]
             gy = Vr * mt["ry"][:, :, None] + Vs * mt["sy"][:, :, None]
             out.append(gx * mt["nx"][:, :, None] + gy * mt["ny"][:, :, None])

@@ -9,11 +9,18 @@ import torch
 
 from dgtpu_torch.models.faces import FaceData, sip_dirichlet_rhs, sip_terms
 from dgtpu_torch.ops.linalg import host_inv
+from dgtpu_torch.ops.orthonormal import element_bases
 from dgtpu_torch.ops.stencil import stencil_from_contributions
 
 
-def _vol_table(level, table):
-    """Shared (nq, B) volume table -> (N, nq, B) broadcast view."""
+def _vol_table(level, table, var=None):
+    """Shared (nq, B) volume table of the basis of ``var`` -> (N, nq, B):
+    per element when that basis is the physical-element orthonormal one
+    (element.py:33-50; ``level.element_basis`` is a {var: ElementBasis}
+    dict, ``ops/orthonormal.element_bases``), else a broadcast view."""
+    eb = (getattr(level, "element_basis", None) or {}).get(var)
+    if eb is not None:
+        return eb.apply(table)
     table = torch.as_tensor(table, dtype=torch.float64, device=level.device)
     return table.expand(level.N, *table.shape)
 
@@ -26,8 +33,8 @@ def volume_laplace(level, var="u", gt=None):
     gt = gt if gt is not None else level.gt
     q = level.quad
     g = gt[var]["e"]
-    Vr = _vol_table(level, q.Vr_sol_int[var][var])
-    Vs = _vol_table(level, q.Vs_sol_int[var][var])
+    Vr = _vol_table(level, q.Vr_sol_int[var][var], var)
+    Vs = _vol_table(level, q.Vs_sol_int[var][var], var)
     Gx = Vr * g["rx"][:, :, None] + Vs * g["sx"][:, :, None]  # (N, nq2, B)
     Gy = Vr * g["ry"][:, :, None] + Vs * g["sy"][:, :, None]
     wJ = g["J"] * torch.as_tensor(q.w_int_2d[var], device=level.device)[None, :]
@@ -40,7 +47,7 @@ def mass_matrices(level, var="u", gt=None):
     """Per-element mass matrices V^T diag(w J) V (element.py:132-133)."""
     gt = gt if gt is not None else level.gt
     q = level.quad
-    V = _vol_table(level, q.V_sol_int[var][var])
+    V = _vol_table(level, q.V_sol_int[var][var], var)
     wJ = gt[var]["e"]["J"] * torch.as_tensor(q.w_int_2d[var],
                                              device=level.device)[None, :]
     return torch.einsum("nqi,nq,nqk->nik", V, wJ, V)
@@ -50,7 +57,7 @@ def source_volume_rhs(level, f_vals, var="u", gt=None):
     """int f phi_i per element: (N, B).  Reference: element.py:161-167."""
     gt = gt if gt is not None else level.gt
     q = level.quad
-    V = _vol_table(level, q.V_sol_int[var][var])
+    V = _vol_table(level, q.V_sol_int[var][var], var)
     wJ = gt[var]["e"]["J"] * torch.as_tensor(q.w_int_2d[var],
                                              device=level.device)[None, :]
     return torch.einsum("nqi,nq,nq->ni", V, wJ, f_vals)
@@ -64,18 +71,16 @@ def assemble_poisson(level, mms=None, gt=None):
     discrete_system.py:139-142 / :398-402.
     """
     settings = level.settings
-    if getattr(settings.problem, "orthonormal_on_physical_element", False):
-        raise NotImplementedError(
-            "problem.orthonormal_on_physical_element is not ported yet "
-            '(ROADMAP Queue 1, "The physical-element orthonormal basis")')
     nu = settings.problem.kinematic_viscosity
     gt = gt if gt is not None else level.gt
     dev = level.device
 
+    # the physical-element orthonormal basis, when the setting is on
+    element_bases(level, gt=gt, vars=("u",))
     vol = volume_laplace(level, gt=gt)
 
-    fd_i = FaceData(level, level.faces_i, "u", gt=gt)
-    fd_j = FaceData(level, level.faces_j, "u", gt=gt)
+    fd_i = FaceData(level, level.faces_i, "u", gt=gt, element_basis=level.element_basis)
+    fd_j = FaceData(level, level.faces_j, "u", gt=gt, element_basis=level.element_basis)
     LL_i, LR_i, RL_i, RR_i = sip_terms(fd_i, nu, level.sigma)
     LL_j, LR_j, RL_j, RR_j = sip_terms(fd_j, nu, level.sigma)
 

@@ -30,9 +30,11 @@ from dgtpu_torch.models.poisson import (_vol_table, source_volume_rhs,
                                         volume_laplace)
 from dgtpu_torch.ops import rolled
 from dgtpu_torch.ops.linalg import host_inv
+from dgtpu_torch.ops.orthonormal import element_bases
 from dgtpu_torch.ops.stencil import StencilOperator, dense_block_gs_sweep
 from dgtpu_torch.ops.transfer import make_transfer, p_restriction
 from dgtpu_torch.solvers.relaxation_driver import tracked_status
+from dgtpu_torch.utils import caching
 from dgtpu_torch.utils.norms import lp_norm
 
 # stencil slot order [self, iL, iR, jL, jR]; _MIRROR[s] = slot of e as seen
@@ -49,11 +51,12 @@ def _w(level, var):
 
 
 def _grad_basis(level, var_basis, var_quad, gt):
-    """G_x, G_y of a basis at a quadrature: (N, nq2, B) each."""
+    """G_x, G_y of a basis at a quadrature: (N, nq2, B) each; per element
+    when the physical-element orthonormal basis is active."""
     q = level.quad
     g = gt[var_quad]["e"]
-    Vr = _vol_table(level, q.Vr_sol_int[var_basis][var_quad])
-    Vs = _vol_table(level, q.Vs_sol_int[var_basis][var_quad])
+    Vr = _vol_table(level, q.Vr_sol_int[var_basis][var_quad], var_basis)
+    Vs = _vol_table(level, q.Vs_sol_int[var_basis][var_quad], var_basis)
     Gx = Vr * g["rx"][:, :, None] + Vs * g["sx"][:, :, None]
     Gy = Vr * g["ry"][:, :, None] + Vs * g["sy"][:, :, None]
     return Gx, Gy
@@ -62,7 +65,7 @@ def _grad_basis(level, var_basis, var_quad, gt):
 def continuity_volume(level, gt):
     """-int q div(u): (N, Np, 2Nu) (element.py:169-179)."""
     Gx, Gy = _grad_basis(level, "u", "p", gt)
-    Vp = _vol_table(level, level.quad.V_sol_int["p"]["p"])
+    Vp = _vol_table(level, level.quad.V_sol_int["p"]["p"], "p")
     wJ = gt["p"]["e"]["J"] * _w(level, "p")
     res_u = -torch.einsum("nqi,nq,nqk->nki", Gx, wJ, Vp)
     res_v = -torch.einsum("nqi,nq,nqk->nki", Gy, wJ, Vp)
@@ -72,7 +75,7 @@ def continuity_volume(level, gt):
 def pressure_volume(level, gt):
     """-int p div(psi): (N, 2Nu, Np) (element.py:201-211)."""
     Gx, Gy = _grad_basis(level, "u", "u", gt)
-    Vp = _vol_table(level, level.quad.V_sol_int["p"]["u"])
+    Vp = _vol_table(level, level.quad.V_sol_int["p"]["u"], "p")
     wJ = gt["u"]["e"]["J"] * _w(level, "u")
     res_x = -torch.einsum("nqi,nq,nqk->nki", Vp, wJ, Gx)
     res_y = -torch.einsum("nqi,nq,nqk->nki", Vp, wJ, Gy)
@@ -110,10 +113,13 @@ def _element_blocks(level, gt):
     (N, 5, rows, cols) tensors for the A (2Nu x 2Nu), D (Np x 2Nu) and
     G (2Nu x Np) parts, plus the FaceData the right-hand side reuses."""
     nu = level.settings.problem.kinematic_viscosity
-    fd_i_u = FaceData(level, level.faces_i, "u", gt=gt)
-    fd_j_u = FaceData(level, level.faces_j, "u", gt=gt)
-    fd_i_p = FaceData(level, level.faces_i, "p", gt=gt)
-    fd_j_p = FaceData(level, level.faces_j, "p", gt=gt)
+    # physical-element orthonormal bases for both u and p when the setting
+    # is on (the reference's transform is u-only, element.py:32)
+    eb = element_bases(level, gt=gt, vars=("u", "p"))
+    fd_i_u = FaceData(level, level.faces_i, "u", gt=gt, element_basis=eb)
+    fd_j_u = FaceData(level, level.faces_j, "u", gt=gt, element_basis=eb)
+    fd_i_p = FaceData(level, level.faces_i, "p", gt=gt, element_basis=eb)
+    fd_j_p = FaceData(level, level.faces_j, "p", gt=gt, element_basis=eb)
 
     def per_direction(fd_u, fd_p):
         sip = [_expand_2x2_diag(b) for b in sip_terms(fd_u, nu, level.sigma)]
@@ -235,12 +241,19 @@ def assemble_stokes(level, mms=None, direct=False):
     ``level.rhs`` (when ``mms`` is given) is in the operator's own ordering.
     """
     s = level.settings
-    if getattr(s.problem, "orthonormal_on_physical_element", False):
-        raise NotImplementedError(
-            "problem.orthonormal_on_physical_element is not ported yet (ROADMAP "
-            'Queue 1, "The physical-element orthonormal basis")')
-    parts = _element_blocks(level, level.gt)
-    A, D, G = (_stencil(parts[c], level) for c in "ADG")
+    # the per-element bases up front, so a cache hit still leaves them to
+    # the error evaluation and the pressure mean shift
+    element_bases(level, vars=("u", "p"))
+    cached = caching.load_stokes_parts(level)
+    # a hit must carry a right-hand side whenever this call needs one
+    if cached is not None and (mms is None or cached[3] is not None):
+        *blocks, rhs, eps = cached
+        A, D, G = (_stencil(b, level) for b in blocks)
+        level.Epsilon = eps if eps is not None else 0.0
+        parts = None
+    else:
+        parts = _element_blocks(level, level.gt)
+        A, D, G = (_stencil(parts[c], level) for c in "ADG")
     ordering = s.solution.ordering
     if ordering == "global":
         level.block_A, level.block_D, level.block_G = A, D, G
@@ -256,9 +269,12 @@ def assemble_stokes(level, mms=None, direct=False):
             # pin one pressure DOF (discrete_system.py:946)
             blocks[0, 0, nu2, nu2] = 1.0
         level.op = StencilOperator(blocks, A.nbr, A.mask)
-    compute_mms_epsilon(level, mms)
-    if mms is not None:
-        rhs = assemble_rhs_stokes(level, mms, parts["fd"])
+    if parts is not None:
+        compute_mms_epsilon(level, mms)
+        rhs = assemble_rhs_stokes(level, mms, parts["fd"]) if mms is not None else None
+        caching.save_stokes_parts(level, A.blocks, D.blocks, G.blocks, rhs,
+                                  level.Epsilon)
+    if rhs is not None:
         level.rhs = reorder_local_to_global(level, rhs) if ordering == "global" else rhs
     return level.op
 
@@ -277,7 +293,7 @@ def assemble_rhs_stokes(level, mms, fds):
     rhs_u = source_volume_rhs(level, mms.f_momentum[0](gu["x"], gu["y"]), gt=gt)
     rhs_v = source_volume_rhs(level, mms.f_momentum[1](gu["x"], gu["y"]), gt=gt)
     # continuity source: -int q f_cont at p-quad (element.py:158-159)
-    Vp = _vol_table(level, level.quad.V_sol_int["p"]["p"])
+    Vp = _vol_table(level, level.quad.V_sol_int["p"]["p"], "p")
     wJp = gp["J"] * _w(level, "p")
     f_cont = mms.f_continuity(gp["x"], gp["y"])
     rhs_p = -torch.einsum("nqi,nq,nq->ni", Vp, wJp, f_cont)
@@ -455,7 +471,7 @@ def reorder_global_to_local(level, vec):
 
 def pressure_integral(level, p_modal):
     """int p dA per element (element.py:151-153); p_modal (N, Np)."""
-    Vp = _vol_table(level, level.quad.V_sol_int["p"]["p"])
+    Vp = _vol_table(level, level.quad.V_sol_int["p"]["p"], "p")
     wJ = level.gt["p"]["e"]["J"] * _w(level, "p")
     p_int = torch.einsum("nqi,ni->nq", Vp, p_modal)
     return torch.sum(p_int * wJ, dim=1)
@@ -463,12 +479,18 @@ def pressure_integral(level, p_modal):
 
 def pressure_mean_shift(level, u_el):
     """Subtract the numerical pressure mean (dgfem.py:170-186): the
-    mode-(0,0) coefficient shifts by 2*mean since phi_00 = 1/2."""
+    mode-(0,0) coefficient shifts by 2*mean since phi_00 = 1/2; under the
+    physical-element orthonormal p basis the constant mode is
+    norms_e0 * 1/2 per element, so the shift divides by norms_e0."""
     npd = level.N_DOF_sol["p"]
     mean = (torch.sum(pressure_integral(level, u_el[:, -npd:]))
             / torch.sum(level.gt["A"]))
+    shift = -2.0 * mean
+    eb_p = (getattr(level, "element_basis", None) or {}).get("p")
+    if eb_p is not None:
+        shift = shift / eb_p.norms[:, 0]
     out = u_el.clone()
-    out[:, -npd] += -2.0 * mean
+    out[:, -npd] += shift
     return out
 
 

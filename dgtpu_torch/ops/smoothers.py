@@ -76,19 +76,26 @@ def sweep_fronts(op, backward=False):
 
 
 def _gs_sweep_sequential(op, rhs, u, Dinv, omega, backward, fronts=None):
-    """One lexicographic block-GS sweep, a batched update per wavefront."""
+    """One lexicographic block-GS sweep, a batched update per wavefront.
+    ``u`` and ``rhs`` are (..., N*B): leading dimensions are a batch of
+    independent vectors swept together (the amplification analysis sweeps
+    every Fourier mode at once)."""
     n, _, br, bc = op.blocks.shape
-    rhs2 = rhs.reshape(n, br)
-    u = u.reshape(n, bc).clone()
+    lead = u.shape[:-1]
+    rhs2 = rhs.reshape(*lead, n, br)
+    u = u.reshape(*lead, n, bc).clone()
     if fronts is None:
         fronts = sweep_fronts(op, backward)
     off_blocks, off_nbr = op.blocks[:, 1:], op.nbr[:, 1:]
     for idx in fronts:
-        ublk = u[off_nbr[idx]]                              # (m, 4, Bc)
-        contrib = torch.einsum("nsij,nsj->ni", off_blocks[idx], ublk)
-        unew = bmv(Dinv[idx], rhs2[idx] - contrib)
-        u[idx] = omega * unew + (1 - omega) * u[idx]
-    return u.reshape(-1)
+        ublk = u[..., off_nbr[idx], :]                      # (..., m, 4, Bc)
+        contrib = torch.einsum("nsij,...nsj->...ni", off_blocks[idx], ublk)
+        r = rhs2[..., idx, :] - contrib
+        # a batch contracts Dinv once for all its vectors (a broadcast
+        # matmul would copy Dinv per vector)
+        unew = torch.einsum("nij,...nj->...ni", Dinv[idx], r) if lead else bmv(Dinv[idx], r)
+        u[..., idx, :] = omega * unew + (1 - omega) * u[..., idx, :]
+    return u.reshape(*lead, n * bc)
 
 
 def _gs_sweep_colored(op, rhs, u, Dinv, omega, colors):

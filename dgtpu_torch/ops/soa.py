@@ -287,9 +287,7 @@ class SoAHierarchy:
                 self.R.append(None)
                 self.P.append(None)
             else:
-                raise NotImplementedError(
-                    f"the SoA cycle has no {t.kind!r} transfer (FVM coarse "
-                    'level: ROADMAP Queue 1, "The other solver routes")')
+                raise ValueError(f"the SoA cycle has no {t.kind!r} transfer")
 
     def _restrict(self, k, r):
         kind = self.transfers[k].kind

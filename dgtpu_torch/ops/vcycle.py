@@ -227,9 +227,7 @@ class RolledVCycle:
                 self.R.append(None)
                 self.P.append(None)
             else:
-                raise NotImplementedError(
-                    f"the rolled cycle has no {t.kind!r} transfer (FVM coarse "
-                    'level: ROADMAP Queue 1, "The other solver routes")')
+                raise ValueError(f"the rolled cycle has no {t.kind!r} transfer")
         # the coarse dense inverse (M, M) in cell-major order: dgtpu keeps
         # the same numbers column-blocked as (M0, Nj0, Ni0, B0, B0)
         self.coarse_inv = (

@@ -1,9 +1,9 @@
 """What ``chip_smoke.py`` counts for K4 (``geo_transfer``), K7
 (``multi_half_sweep``), R1 (``rolled_half_sweep``) and R2
 (``rolled_stencil_apply``) on the CPU: the bytes and operations of a call
-(``work``), K7's streaming floor (``stream_floor``), the library calls K4
-and R2 are timed against (``library_of``), and the swap of the kernel
-libraries under ``--parent`` (``kernels_of``).
+(``work``), K7's streaming floor (``stream_floor``), the library calls K4,
+K5 (``stencil_apply``) and R2 are timed against (``library_of``), and the
+swap of the kernel libraries under ``--parent`` (``kernels_of``).
 
 The levels are the port's own: a ``StreamedLevel`` (float32 and bfloat16
 sweep blocks) and the levels of a ``RolledVCycle`` over the 4x4 p2
@@ -197,6 +197,28 @@ def test_r2_library_call_matches_plain(nj, ni, B, residual):
     assert what.endswith("gather not timed")
     torch.testing.assert_close(call(), vcycle.stencil_apply_plain(*args), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("periodic", [False, True], ids=["rectangle", "o_grid"])
+@pytest.mark.parametrize("call", ["residual", "matvec", "scaled"])
+def test_k5_library_call_matches_plain(storage, periodic, call):
+    """K5's library call (one torch.einsum over the pre-gathered own and
+    neighbor fields of both colors, then the add of base and sign, or the
+    sign alone) computes the plain version's function, on a rectangle and
+    on an O-grid lattice, with float32 and bfloat16 blocks."""
+    rng = np.random.default_rng(3)
+    nj, ni, Bs, Bd = 4, 6, 5, 3
+    C = nj * ni // 2
+    lv = soa.SoALevel(None, None, soa.lane_masks(nj, ni, torch.float32, "cpu"), nj, ni,
+                      periodic)
+    blk = _rand(rng, 2, 5, Bs, Bd, C).to(storage)
+    x, base = _rand(rng, 2, Bs, C), _rand(rng, 2, Bd, C)
+    args = {"residual": (lv, blk, x, base, -1.0), "matvec": (lv, blk, x),
+            "scaled": (lv, blk, x, None, 0.5)}[call]
+    fn, what = chip_smoke.library_of(soa.stencil_apply, args)
+    assert what.endswith("gather not timed")
+    torch.testing.assert_close(fn(), soa.stencil_apply_plain(*args), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("with_base", [False, True], ids=["no_base", "base"])

@@ -6,8 +6,8 @@ cycle (geometric factors 4,2 coarsen to 1x1, an odd Ni).
 Bars: L1/L2(u) within 1e-8 relative, the same number of cycles, sweeps or
 outer rounds; the rolled route reproduces dgtpu's L2(u) for 4x4 p=2 with
 factors 4,2.  Stokes outside the mixed multigrid route runs as dgtpu's
-does, and stops where dgtpu's stops; ``-k`` and ``-amg`` run, ``-fvm``
-still raises, naming its ROADMAP item.
+does, and stops where dgtpu's stops; ``-k``, ``-amg`` and ``-fvm`` run to
+dgtpu's errors.
 """
 
 import os
@@ -178,15 +178,14 @@ def test_stokes_outside_the_mixed_route_raises(tmp_path, monkeypatch, method):
                                     "solve_finite_volume_method"])
 def test_other_methods_raise(tmp_path, monkeypatch, method):
     """``-k`` (GMRES, block-diagonal preconditioner) and ``-amg`` (smoothed
-    aggregation) run to dgtpu's L1/L2(u) within 1e-8 (the test keeps the
-    name it had while they raised); ``-fvm`` still raises, naming its ROADMAP
-    item."""
-    if method == "solve_finite_volume_method":
-        monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP Queue 1, "The other solver routes"'):
-            tapi.DGFEM(device="cpu", settings=Settings(_params()), **{method: True})
-        return
+    aggregation) run to dgtpu's L1/L2(u) within 1e-8, ``-fvm`` (a direct
+    solve of the finite-volume system) to dgtpu's within 1e-10 (the test
+    keeps the name it had while they raised)."""
     ref, port = _both(tmp_path, _params(), **{method: True})
+    if method == "solve_finite_volume_method":
+        assert port.levels[-1].discretization == "fvm" and port.residual < 1e-12
+        assert port.L1_error_u == pytest.approx(ref.L1_error_u, rel=1e-10)
+        assert port.L2_error_u == pytest.approx(ref.L2_error_u, rel=1e-10)
+        return
     assert len(port.levels) == 1
     _errors_match(ref, port)

@@ -19,6 +19,7 @@ import __graft_entry__
 import dgtpu_torch.api as tapi
 from dgtpu_torch.__main__ import build_parser, main
 from dgtpu_torch.settings import Settings, load_params
+from dgtpu_torch.utils import caching
 
 torch.set_num_threads(1)
 
@@ -131,12 +132,37 @@ def test_residual_history_leaves_dgtpus_directory(tmp_path, monkeypatch):
     ({"visualization.automatically open paraview": True}, "I/O and tools"),
 ])
 def test_unported_branches_raise(tmp_path, monkeypatch, override, item):
-    """Each branch this slice does not port raises, naming its ROADMAP
-    Queue 1 item by title."""
+    """Each branch the port does not have yet (Multi-GPU, I/O and tools)
+    raises, naming its ROADMAP Queue 1 item by title.  The branches that
+    raised until the port had them (an FVM coarse level, caching, the check
+    flags, the physical-element orthonormal basis; the test keeps its name
+    and cases) run as dgtpu's DGFEM runs the same parameters: L2(u) within
+    1e-6 relative (the mixed route stays mixed, the FVM level falls back to
+    full precision), the check flags' results within 1e-8."""
+    from dgtpu.api import DGFEM as JDGFEM
+    from dgtpu.settings import Settings as JSettings
     monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
+    monkeypatch.setattr(caching, "CACHE_ROOT", str(tmp_path / "cache"))
     params = yaml.safe_load(open(_paramfile(tmp_path, **override)))
-    with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
-        tapi.DGFEM(device="cpu", settings=Settings(params), solve_multigrid=True)
+    if item in ("Multi-GPU", "I/O and tools"):
+        with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
+            tapi.DGFEM(device="cpu", settings=Settings(params), solve_multigrid=True)
+        return
+    params["visualization"]["export"] = False
+    ref = JDGFEM(settings=JSettings(yaml.safe_load(yaml.safe_dump(params))),
+                 solve_multigrid=True)
+    ref.solve()
+    port = tapi.DGFEM(device="cpu", settings=Settings(params), solve_multigrid=True)
+    port.solve()
+    assert port.L2_error_u == pytest.approx(ref.L2_error_u, rel=1e-6)
+    fvm = "use FVM" in next(iter(override))
+    assert port.cycle_kind == ("full precision" if fvm else "SoA")
+    assert [l.discretization for l in port.levels] == \
+        [l.discretization for l in ref.levels]
+    if "check" in next(iter(override)):
+        assert port.diagnostics.keys() == ref.diagnostics.keys() != set()
+        for key, value in ref.diagnostics.items():
+            assert port.diagnostics[key] == pytest.approx(value, rel=1e-8)
 
 
 @pytest.mark.parametrize("override, error, match", [
@@ -178,21 +204,20 @@ def test_stokes_branches_stop_where_dgtpu_does(tmp_path, monkeypatch, override,
 
 
 def test_other_solver_routes_raise(tmp_path, monkeypatch):
-    """``-k`` runs, through the constructor and the CLI (the test keeps the
-    name it had while it raised); ``-fvm`` still raises, and the CLI exits
-    with 1."""
+    """``-k`` and ``-fvm`` run, through the constructor and the CLI (the test
+    keeps the name it had while they raised)."""
     monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
     dg = tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path), solve_krylov=True)
     dg.solve()
     cli = main(["-k", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
     assert cli.L2_error_u == dg.L2_error_u
     assert cli.krylov_iterations == dg.krylov_iterations >= 1
-    with pytest.raises(NotImplementedError, match='Queue 1, "The other solver routes"'):
-        tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path),
-                   solve_finite_volume_method=True)
-    with pytest.raises(SystemExit) as exc:
-        main(["-fvm", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
-    assert exc.value.code == 1
+    dg = tapi.DGFEM(device="cpu", paramfile=_paramfile(tmp_path),
+                    solve_finite_volume_method=True)
+    dg.solve()
+    cli = main(["-fvm", "--device", "cpu", "--silent", "--paramfile", _paramfile(tmp_path)])
+    assert cli.levels[-1].discretization == "fvm" and cli.residual < 1e-12
+    assert cli.L2_error_u == dg.L2_error_u < 1.0
 
 
 def test_device_is_explicit(tmp_path, monkeypatch):

@@ -230,7 +230,7 @@ def test_rejects_unknown_cycle_and_transfer(hierarchies):
         RolledVCycle(ops, t.transfers, t.types, s, dims)
     fvm = copy.copy(t.transfers[0])
     fvm.kind = "geometric_fvm"
-    with pytest.raises(NotImplementedError, match='Queue 1, "The other solver routes"'):
+    with pytest.raises(ValueError, match="no 'geometric_fvm' transfer"):
         RolledVCycle(ops, [fvm] + t.transfers[1:], t.types, dg.settings, dims)
 
 
