@@ -5,6 +5,7 @@ port builds, runs its CUDA kernels and solves on the card.
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # phases 1-2, then the profile
     python3 chip_smoke.py --parent DIR   # every phase, with DIR's kernels beside
+    python3 chip_smoke.py --sharded   # phases 1-2, phase 6's SoA-route solve, phase 24
 
 ``--parent DIR`` takes the root of an earlier tree of the repository (for
 example ``git archive <commit> dgtpu_torch/csrc | tar -x -C DIR``): its
@@ -131,7 +132,20 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      graph against eager bit for bit); the 8x8 p5 mixed route twice with
      caching on (the second loads every level; the same L2(u) bit for bit;
      both setup times); the host C++ kernels (``dgtpu_torch/native``) against
-     the plain torch ones at 8x8 p5; the phase's wall time.
+     the plain torch ones at 8x8 p5; the phase's wall time;
+ 24. the sharded multigrid and the tools (``sharded_and_tools_phases``):
+     the 64x64 p5 mixed route over 4 shards on the card (phase 6's
+     hierarchy and FMG seed; held to phase 6's SoA-route nodal solution;
+     one eager sharded float32 V-cycle timed),
+     the 8x8 p5 full-precision sharded multigrid over 1, 2 and 4 shards
+     (equal cycle counts, the 4-shard count dgtpu's, L2(u) within 1e-12),
+     the Stokes mixed route over 4 shards (16x16, held to dgtpu's L2; 8x8
+     with the Chebyshev velocity solver, phase 10's bars; the GMRES(16)
+     refinement at 8x8), every operand and halo row on the card and no
+     kernel launched by the sharded solves; ``--profile`` at 8x8 p5 (its
+     trace holds K1's and K5's CUDA kernels); the convergence study (rates
+     above p + 1 - 0.4) and the figure suite (dgtpu's file names where
+     matplotlib imports); the phase's wall time.
 Then the launch geometries at which K1, K6 and K7 were held to their plain
 versions (a timed case at any other raises).  The last lines are the
 kernels' JSON record (per kernel: launches on the main paths, worst error
@@ -201,6 +215,9 @@ RES_TOL = 1e-10            # normalized residual of the refined solve
 DGTPU_STOKES_L2 = {
     8: {"u": 0.011376812893912363, "v": 0.011376520781395932,
         "p": 0.04501405866873862},
+    # 16x16 (phase 24's sharded Stokes case): the 8x8 command with n = 16
+    16: {"u": 0.0013386720061285124, "v": 0.0013386721057439355,
+         "p": 0.009049827174525066},
     32: {"u": 0.0001539444269394462, "v": 0.00015394453731214222,
          "p": 0.0021337602694521955},
 }
@@ -2233,6 +2250,228 @@ def other_route_phases(card, rng, l2_poisson8, stokes8, flagship):
     return paths
 
 
+# the sharded full-precision multigrid at 8x8 p=5 (the shipped paramfile,
+# red-black sweeps to its 1e-6) over 4 shards: dgtpu's cycle count on a CPU
+# mesh, the number tests/test_torch_parallel.py holds the port to
+#   python -c "from dgtpu.__main__ import main; \
+#     print(len(main(['-m', '--shards', '4', '--silent', '--backend', 'cpu']).residuals) - 1)"
+# with XLA_FLAGS=--xla_force_host_platform_device_count=4
+DGTPU_SHARDED_CYCLES_8X8_P5 = 7
+SHARD_L2_REL_TOL = 1e-12   # 1, 2 and 4 shards: sharding only reorders the psum
+PHASE24_BUDGET_S = 150.0
+# the figure suite's files (dgtpu's names for p = 2)
+FIGURE_SUITE_FILES = ["standard_element_p2.png", "legendre_basis_p2.png",
+                      "nodal_basis_p2.png", "modal_basis_2d_p2.png", "lebesgue_p2.png",
+                      "lebesgue_constant_p6.png", "runge_p6.png"]
+
+
+def have_matplotlib():
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def on_card(mg):
+    """Raise unless every operand of the sharded cycle and every halo row
+    exchanged so far lay on the card."""
+    from dgtpu_torch.parallel import halo
+    off = [tuple(t.shape) for t in mg.tensors() if not t.is_cuda]
+    if off or halo.EXCHANGES["cpu"] or not halo.EXCHANGES["cuda"]:
+        raise AssertionError(f"the sharded route left the card: operands {off}, halo "
+                             f"exchanges {dict(halo.EXCHANGES)}")
+
+
+def sharded_stokes(n, factors, velocity_solver="gs"):
+    """The Stokes mixed route at n x n over 4 shards, with the geometric
+    ``factors`` and ``performance.dgs_velocity_solver``; returns the solved
+    DGFEM and its wall seconds."""
+    from dgtpu_torch.api import DGFEM
+    from dgtpu_torch.settings import Settings
+    params = stokes_params(n)
+    params["solver"]["multigrid"]["geometric coarsening"]["coarsening factors"] = factors
+    params["performance"]["n_shards"] = 4
+    params["performance"]["dgs_velocity_solver"] = velocity_solver
+    t0 = time.perf_counter()
+    dg = DGFEM(device="cuda", settings=Settings(params), solve_multigrid=True)
+    dg.solve()
+    return dg, time.perf_counter() - t0
+
+
+def sharded_and_tools_phases(card, dg64, u_soa64):
+    """Phase 24: the sharded multigrid (``parallel/``) and the tools on the
+    card.  The 64x64 p5 mixed route (``dg64``, phase 6's hierarchy: factors
+    16,8,4,2, FMG seed) over 4 shards held to phase 6's SoA-route nodal
+    solution ``u_soa64``, and one eager float32 sharded V-cycle timed; the
+    8x8 p5 full-precision sharded multigrid over
+    1, 2 and 4 shards (equal cycle counts, the 4-shard one dgtpu's, L2(u)
+    within SHARD_L2_REL_TOL); the Stokes mixed route over 4 shards at 16x16
+    (dgtpu's L2 bars; 32x32 takes minutes eagerly) and at 8x8 with the
+    Chebyshev velocity solver (phase 10's bars), the hierarchies cut to the
+    nearest that 4 shards divide, and the GMRES(16)-wrapped refinement at
+    8x8; every operand and halo row on the card and no kernel launched by
+    the sharded solves; ``--profile`` at 8x8 p5 (its trace holds K1's and
+    K5's CUDA kernels); the convergence study (rates above p + 1 - 0.4) and
+    the figure suite (dgtpu's file names where matplotlib imports, none
+    where it does not).  Returns {path: launch counts} of the profiled
+    route."""
+    import numpy as np
+    import torch
+    from dgtpu_torch import studies
+    from dgtpu_torch.__main__ import main as cli
+    from dgtpu_torch.parallel import halo
+    t_phase = time.perf_counter()
+
+    # -- 64x64 p5, mixed, 4 shards, FMG seed ---------------------------------
+    mg = dg64.settings.solver.multigrid
+    admitted = halo.shardable_device_counts(dg64.levels)
+    if 4 not in admitted:
+        raise AssertionError(f"phase 6's hierarchy does not divide over 4 shards: {admitted}")
+    reset_counts()
+    halo.EXCHANGES.clear()
+    dg64.settings.performance.n_shards = 4
+    try:
+        dg64.solve()
+        torch.cuda.synchronize()
+    finally:
+        dg64.settings.performance.n_shards = 1
+    on_card(dg64.mg)
+    sol = float(abs(dg64.u_nodal - u_soa64).max() / abs(u_soa64).max())
+    print(f"[24] 64x64 p5 mixed over {dg64.mesh.size} shards on {len(dg64.mesh.cards)} "
+          f"card(s) (factors {mg.geometric_coarsening.coarsening_factors}, Nj per level "
+          f"{[l.Nj for l in dg64.levels]}, shard counts admitted {admitted}), FMG seed: "
+          f"{dg64.outer_rounds} outer rounds, residual {dg64.solve_residual:.3e} "
+          f"(normalized), L2(u) {dg64.L2_error_u:.9e}, nodal u against phase 6's SoA "
+          f"route {sol:.2e} relative, solve {dg64.solve_seconds:.3f} s; halo exchanges "
+          f"{dict(halo.EXCHANGES)} ({card})", flush=True)
+    if dg64.cycle_kind != "sharded mixed" or not dg64.solve_residual < RES_TOL:
+        raise AssertionError("the sharded 64x64 route missed 1e-10")
+    if not sol < RES_TOL:
+        raise AssertionError(f"the sharded 64x64 solution differs from phase 6's: {sol:.3e}")
+    # one eager float32 sharded V-cycle (plain torch), to set beside phase
+    # 7's graphed SoA cycle
+    mg64 = dg64.mg
+    r32 = mg64._bands(dg64.levels[-1].rhs, torch.float32)
+    top = len(dg64.levels) - 1
+    cycle_ms = cuda_ms(lambda: mg64._v_cycle(top, mg64.data32(), r32,
+                                             [torch.zeros_like(b) for b in r32]), 5)
+    print(f"[24] 64x64 p5 sharded float32 V-cycle over 4 shards, eager: {cycle_ms:.2f} ms "
+          f"per cycle (CUDA events over 5 cycles) ({card})", flush=True)
+
+    # -- 8x8 p5 full precision over 1, 2 and 4 shards ------------------------
+    s8 = settings_for("Rectangle_8X8_nPoly5.xyz", 5)
+    s8.performance.precision = "full"
+    dg8 = hierarchy(s8)
+    runs = {}
+    for k in (1, 2, 4):
+        t0 = time.perf_counter()
+        u, res, n = dg8._solve_multigrid_sharded(k, "full")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        on_card(dg8.mg)
+        dg8._postprocess(u)
+        runs[k] = (n, dg8.L2_error_u, res, secs)
+    l2_1 = runs[1][1]
+    spread = max(abs(r[1] - l2_1) / l2_1 for r in runs.values())
+    print(f"[24] 8x8 p5 full precision, sharded red-black multigrid: "
+          + ", ".join(f"{k} shard(s) {n} cycles, L2(u) {l2!r}, residual {res:.3e}, "
+                      f"{secs:.3f} s" for k, (n, l2, res, secs) in runs.items())
+          + f"; L2(u) spread {spread:.2e} (dgtpu's 4-shard count "
+          f"{DGTPU_SHARDED_CYCLES_8X8_P5}) ({card})", flush=True)
+    if len({r[0] for r in runs.values()}) != 1 or not spread <= SHARD_L2_REL_TOL:
+        raise AssertionError(f"the 1/2/4-shard solves disagree: {runs}")
+    if runs[4][0] != DGTPU_SHARDED_CYCLES_8X8_P5:
+        raise AssertionError(f"4 shards took {runs[4][0]} cycles, dgtpu "
+                             f"{DGTPU_SHARDED_CYCLES_8X8_P5}")
+
+    # -- Stokes, mixed, 4 shards ---------------------------------------------
+    # 16x16, not 32x32: the eager sharded 32x32 route took 422.8 s on an
+    # H100 (20 stalled plain rounds, then 5 GMRES(16) rounds; PERF.md)
+    for n, factors, solver in ((16, "2,4", "gs"), (8, "2", "chebyshev")):
+        halo.EXCHANGES.clear()
+        dg, secs = sharded_stokes(n, factors, solver)
+        torch.cuda.synchronize()
+        on_card(dg.mg)
+        rel_l2 = check_stokes_errors(dg, n)
+        print(f"[24] Stokes {n}x{n} mixed over {dg.mesh.size} shards (factors {factors}: "
+              f"Nj per level {[l.Nj for l in dg.levels]}, velocity solve {solver}): "
+              f"outer rounds {dg.rounds}, inner {dg.inner}, residual "
+              f"{dg.solve_residual:.3e}, L2(u) {dg.L2_error_u:.9e}, L2(v) "
+              f"{dg.L2_error_v:.9e}, L2(p) {dg.L2_error_p:.9e} (rel to dgtpu {rel_l2}), "
+              f"solve {dg.solve_seconds:.3f} s, {secs:.1f} s with setup ({card})", flush=True)
+        if not dg.solve_residual < RES_TOL:
+            raise AssertionError(f"the sharded {n}x{n} Stokes route missed 1e-10")
+    # the route's GMRES(16) retry (16x16 converges without it) on the last
+    # route's 8x8 levels, held to phase 10's bars
+    t0 = time.perf_counter()
+    u_g, res_g, n_g = dg.mg.solve_refined(dg.levels[-1].rhs, tol=RES_TOL, n_inner=16,
+                                          inner="gmres")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    on_card(dg.mg)
+    dg._postprocess(u_g)
+    rel_l2 = check_stokes_errors(dg, 8)
+    print(f"[24] Stokes 8x8 sharded refinement with GMRES(16)-wrapped cycles: {n_g} outer "
+          f"rounds, residual {res_g:.3e}, L2 rel to dgtpu {rel_l2}, {secs:.1f} s ({card})",
+          flush=True)
+    if not res_g < RES_TOL:
+        raise AssertionError("the sharded GMRES refinement missed 1e-10")
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise AssertionError(f"the sharded routes launched kernels: {launched}")
+
+    # -- --profile -------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        dg = cli(["-m", "--precision", "mixed", "--silent", "--profile", tmp])
+        torch.cuda.synchronize()
+        launches = counts()
+        trace = os.path.join(tmp, "trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(trace)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = sum("half_sweep_kernel" in k and "dg_half_sweep" not in k for k in kernels)
+    k5 = sum("stencil_apply_kernel" in k for k in kernels)
+    print(f"[24] --profile at 8x8 p5 mixed: trace.json {size} bytes, {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events (K1 half_sweep_kernel {k1}, K5 "
+          f"stencil_apply_kernel {k5}), L2(u) {dg.L2_error_u:.9e}; launches {launches} "
+          f"({card})", flush=True)
+    if not (k1 and k5):
+        raise AssertionError("the profile holds no K1 or no K5 kernel events")
+    not_launched(launches, ["half_sweep", "stencil_apply"], "the profiled 8x8 route")
+
+    # -- the studies -----------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        results, rates = studies.run_convergence_study(
+            grid_sizes=(2, 4, 8), degrees=(1, 2), p_grid=1,
+            exact={"u": "sin(pi*x)*sin(pi*y)", "tag": "MMS"},
+            outdir=os.path.join(tmp, "convergence"), device="cuda")
+        study_s = time.perf_counter() - t0
+        written = sorted(os.listdir(os.path.join(tmp, "convergence")))
+        figures = [os.path.basename(f) for f in
+                   studies.run_figure_suite(p=2, outdir=os.path.join(tmp, "plots"))]
+    print(f"[24] convergence study on the card (grids 2/4/8, p 1/2, -d): L2(u) "
+          f"{ {p: [float(f'{e:.6e}') for _, e in pts] for p, pts in results.items()} }, "
+          f"rates { {p: [round(r, 3) for r in rs] for p, rs in rates.items()} }, "
+          f"{study_s:.2f} s, files {written}; figure suite {figures} (matplotlib "
+          f"{'present' if have_matplotlib() else 'missing: no plot is drawn'}) ({card})",
+          flush=True)
+    if not all(rates[p][-1] > p + 1 - 0.4 for p in rates):
+        raise AssertionError(f"convergence rates below p + 1 - 0.4: {rates}")
+    # where matplotlib is missing (the GPU machine has none) the plots return
+    # None and the suite writes nothing, dgtpu's HAVE_MPL behaviour
+    expected = FIGURE_SUITE_FILES if have_matplotlib() else []
+    if figures != expected:
+        raise AssertionError(f"the figure suite wrote {figures}, not {expected}")
+    wall = time.perf_counter() - t_phase
+    print(f"[24] the sharded multigrid and the tools took {wall:.1f} s of wall time "
+          f"(budget {PHASE24_BUDGET_S:g} s) ({card})", flush=True)
+    return {"poisson_8x8_profile": launches}
+
+
 def check_rolled(worst):
     """Each rolled kernel's worst error so far within ROLLED_REL_TOL."""
     from dgtpu_torch.ops import vcycle
@@ -2261,6 +2500,9 @@ def main():
                         help="phases 1-2, then the torch.profiler breakdown")
     parser.add_argument("--parent", metavar="DIR",
                         help="root of an earlier tree whose kernels are timed beside")
+    parser.add_argument("--sharded", action="store_true",
+                        help="phases 1-2, the 64x64 p5 SoA-route solve of phase 6, "
+                             "then phase 24")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2291,6 +2533,14 @@ def main():
     floor = launch_floor(card)
     if opts.profile:
         profile(card)
+        print(card)
+        return 0
+    if opts.sharded:
+        dg64 = hierarchy(settings_for("Rectangle_64X64_nPoly5.xyz", 5,
+                                      factors="16,8,4,2", fmg=True))
+        with stream_budget(None):
+            dg64.solve()
+        sharded_and_tools_phases(card, dg64, dg64.u_nodal)
         print(card)
         return 0
 
@@ -2596,10 +2846,14 @@ def main():
     # basis, caching and the host C++ kernels ---------------------------------
     other_paths = other_route_phases(card, rng, l2_poisson8, dg8, flagship)
 
+    # -- 24: the sharded multigrid, --profile and the studies ----------------
+    sharded_paths = sharded_and_tools_phases(card, dg64, u_soa)
+
     paths = {"poisson_8x8": launches, "poisson_64x64_hybrid": launches64,
              "poisson_64x64_hybrid_bf16": launches64_bf16,
              "stokes_8x8": stokes_launches, "stokes_32x32": stokes_launches32,
-             "stokes_32x32_hybrid": launches32h, **rolled_paths, **other_paths}
+             "stokes_32x32_hybrid": launches32h, **rolled_paths, **other_paths,
+             **sharded_paths}
     rolled_site = "dgtpu/ops/pallas_vcycle.py:326"
     replaces = {
         soa.half_sweep: "dgtpu/ops/pallas_soa.py:574, dgtpu/ops/pallas_stokes.py:739",

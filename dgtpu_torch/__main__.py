@@ -7,6 +7,8 @@
     python -m dgtpu_torch -amg
     python -m dgtpu_torch -fvm
     python -m dgtpu_torch -amp --dg-discretization|--fvm-discretization
+    python -m dgtpu_torch -m --shards 4 [--precision mixed]
+    python -m dgtpu_torch -m --profile DIR
 
 Ported for Poisson and Stokes (``problem.type: Stokes`` in the paramfile,
 local or global ordering): the multigrid in full precision (the
@@ -15,12 +17,16 @@ paramfile's default) and in mixed precision, with FVM coarse levels
 smoother solve (``--smoother distributive_gauss_seidel`` for global-order
 Stokes), the Krylov solve, algebraic multigrid, the finite-volume solve and
 the smoother amplification analysis; the paramfile's check switches, the
-physical-element orthonormal basis and operator caching.  Sharding
-(``--shards``) and the plots (``--plot-sparsity-pattern``, ParaView) raise
-NotImplementedError naming their ROADMAP item.
+physical-element orthonormal basis and operator caching.  ``--shards N``
+runs the multigrid over N element-row bands (on the card shard k sits on
+card k modulo the visible cards); ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the solve into DIR.
+``--plot-sparsity-pattern`` sets the setting and solves, as dgtpu's route
+does (no route of either package draws that plot).
 """
 
 import argparse
+import os
 import sys
 import traceback
 
@@ -66,8 +72,12 @@ def build_parser():
     parser.add_argument("-v", "--verbose", action="store_true")
     parser.add_argument("--silent", action="store_true")
     parser.add_argument("--shards", type=int, default=None,
-                        help="shard the multigrid solve over N devices "
-                             "(not ported yet)")
+                        help="shard the MULTIGRID solve over N element-row "
+                             "bands (one card may hold several; ignored with "
+                             "a warning for other solvers)")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="write a torch.profiler Chrome trace of the solve "
+                             "into DIR (chrome://tracing or Perfetto)")
     parser.add_argument("--paramfile", type=str, help="alternate paramfile.yml")
     parser.add_argument("--precision", type=str, default=None,
                         choices=("full", "mixed"),
@@ -78,6 +88,25 @@ def build_parser():
                         help="torch device of the solve (default cuda; a CPU "
                              "run needs --device cpu)")
     return parser
+
+
+def profile_solve(dgfem, outdir):
+    """``dgfem.solve()`` under ``torch.profiler`` (CPU activity, and CUDA
+    activity on the card); the Chrome trace goes to ``outdir/trace.json``,
+    whose path is returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if dgfem.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        dgfem.solve()
+        if dgfem.device.type == "cuda":
+            torch.cuda.synchronize()
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def main(argv=None):
@@ -127,7 +156,11 @@ def main(argv=None):
                       check_eigenvalues=args.check_eigenvalues,
                       check_condition_number=args.check_condition_number,
                       plot_sparsity_pattern=args.plot_sparsity_pattern)
-        dgfem.solve()
+        if args.profile:
+            path = profile_solve(dgfem, args.profile)
+            logger.info(f"profiler trace written to {path}")
+        else:
+            dgfem.solve()
         return dgfem
     except Exception:
         logger.critical(traceback.format_exc())

@@ -22,13 +22,17 @@ full-precision multigrid, as dgtpu's does.  The full-precision, direct,
 smoother, Krylov, AMG, FVM and amplification routes run in float64 plain
 torch on the same device.
 
-The branches of dgtpu's orchestrator that the port does not have yet
-(sharding over several devices, the plots and ParaView) raise
-NotImplementedError naming their ROADMAP item; nothing falls back to the CPU.
+With ``performance.n_shards > 1`` the multigrid runs sharded over element
+rows (``parallel/halo.py``, ``parallel/stokes_halo.py``): one process drives
+a list of devices, one per shard, in full precision or with float32 sharded
+cycles inside a float64 halo defect loop.  ``automatically open paraview``
+starts the configured executable on the exported ``.vts``.  Nothing falls
+back to the CPU.
 """
 
 import math
 import os
+import subprocess
 
 import numpy as np
 import torch
@@ -47,13 +51,15 @@ from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        reorder_global_to_local)
 from dgtpu_torch.ops.graphs import CycleGraph
 from dgtpu_torch.ops.orthonormal import element_bases
-from dgtpu_torch.ops.smoothers import element_colors
+from dgtpu_torch.ops.smoothers import element_colors, normalize_smoother_name
 from dgtpu_torch.ops.soa import SoAVCycle
 from dgtpu_torch.ops.stokes_soa import SoAStokesVCycle
 from dgtpu_torch.ops.stokes_stream import StreamedStokesVCycle
 from dgtpu_torch.ops.stream import StreamedVCycle
 from dgtpu_torch.ops.transfer import make_transfer
 from dgtpu_torch.ops.vcycle import RolledVCycle
+from dgtpu_torch.parallel.halo import ShardedMultigrid, make_mesh
+from dgtpu_torch.parallel.stokes_halo import ShardedStokesMultigrid
 from dgtpu_torch.settings import Settings, load_params
 from dgtpu_torch.solvers.amg import solve_amg
 from dgtpu_torch.solvers.amplification import calculate_amplification
@@ -80,17 +86,8 @@ def _wants_mg_precond(settings):
                             "preconditioner", "")) == "multigrid")
 
 
-def _unsupported(settings, method):
-    """The first configuration choice the port does not have yet, as
-    (what, the title of its ROADMAP Queue 1 item), or None."""
-    s = settings
-    perf = getattr(s, "performance", None)
-    if int(getattr(perf, "n_shards", 1) or 1) > 1 and method == "multigrid":
-        return "performance.n_shards > 1", "Multi-GPU"
-    if getattr(s.visualization, "plot_sparsity_pattern", False) \
-            or s.visualization.automatically_open_paraview:
-        return "visualization plots / ParaView", "I/O and tools"
-    return None
+def _n_shards(settings):
+    return int(getattr(getattr(settings, "performance", None), "n_shards", 1) or 1)
 
 
 def stream_budget(device):
@@ -132,12 +129,6 @@ class DGFEM:
             raise NotImplementedError(
                 f"There exists no implementation for the {problem} equation(s), "
                 f"possible equation(s) are: Poisson|Stokes")
-        missing = _unsupported(self.settings, self.settings.solver.method)
-        if missing:
-            raise NotImplementedError(
-                f'{missing[0]} is not ported to dgtpu_torch yet (ROADMAP Queue 1, '
-                f'"{missing[1]}")')
-
         folder = self.settings.grid.folder
         grid_filepath = (folder if os.path.isabs(folder)
                          else os.path.join(REPO_ROOT, folder))
@@ -356,6 +347,10 @@ class DGFEM:
         method = s.solver.method
         finest = self.levels[-1]
         self.logger.debug(f"Solving with {method} method ...")
+        if method != "multigrid" and _n_shards(s) > 1:
+            self.logger.warning(
+                "performance.n_shards only applies to the multigrid solver; "
+                f"running {method} single-device")
         self.graph_seconds = 0.0
         with Timer() as t:
             if method in ("direct", "finite_volume_method"):
@@ -372,6 +367,11 @@ class DGFEM:
                 variant = str(getattr(getattr(s.solver, "amg", None), "variant", "sa"))
                 u_modal, self.amg_info = solve_amg(finest.op, finest.rhs,
                                                    variant=variant)
+            elif method == "multigrid" and _n_shards(s) > 1:
+                u_modal, res, n = self._solve_multigrid_sharded(
+                    _n_shards(s), str(getattr(s.performance, "precision", "full")))
+                self.solve_residual = res
+                self.residuals = list(self.mg.history)
             elif method == "multigrid":
                 precision = str(getattr(s.performance, "precision", "full"))
                 if precision == "mixed":
@@ -408,6 +408,66 @@ class DGFEM:
         u, res, n, hist = self.mg.solve(finest.rhs)
         self.residuals = [r for r in hist if math.isfinite(r)]
         self.cycle_kind = "full precision"
+        return u, res, n
+
+    def _solve_multigrid_sharded(self, n_shards, precision="full"):
+        """Multigrid over ``n_shards`` element-row bands (dgtpu's
+        ``_solve_multigrid_sharded``, ``api.py:585-672``): Poisson with
+        red-black smoothing and a halo exchange, Stokes with the
+        distributive-GS smoother in stencil/halo form.  ``precision='mixed'``
+        runs float32 sharded cycles inside a float64 halo defect loop to
+        min(tol, 1e-10); Stokes retries with GMRES(16)-wrapped cycles when
+        the plain refinement stalls.  The shards go to ``make_mesh``'s
+        devices: on the card shard k to card k modulo the visible cards,
+        so one card may hold every shard (dgtpu refuses fewer devices than
+        shards)."""
+        mesh = make_mesh(n_shards, self.device)
+        finest = self.levels[-1]
+        mixed = precision == "mixed"
+        if mixed and bool(getattr(self.settings.solver.multigrid, "full_multigrid", False)):
+            self.logger.info("sharded mixed-precision refinement seeded with the "
+                             "shard-local FMG (nested-iteration) guess")
+        if "p" in self.vars:
+            # the sharded Stokes smoother is structurally distributive GS
+            # (cell-Vanka diverges on SIP-DG): warn if the config names another
+            mgs = self.settings.solver.multigrid
+            for t in set(self.transfer_types):
+                node = getattr(mgs, f"{t}_coarsening")
+                for side in (node.pre_smoother, node.post_smoother):
+                    if normalize_smoother_name(side.smoother) != "distributive_gauss_seidel":
+                        self.logger.warning(
+                            f"sharded Stokes multigrid smooths with distributive GS, "
+                            f"not the configured {side.smoother!r}")
+            self.mg = ShardedStokesMultigrid(self.levels, self.settings, mesh=mesh,
+                                             transfers=self.transfers,
+                                             transfer_types=self.transfer_types)
+        else:
+            self.mg = ShardedMultigrid(self.levels, self.transfers, self.settings,
+                                       mesh=mesh)
+        cards = mesh.cards
+        self.mesh = mesh
+        self.cycle_kind = f"sharded {'mixed' if mixed else 'full precision'}"
+        self.logger.info(f"sharded multigrid over {n_shards} shards on {len(cards)} "
+                         f"{cards[0].type} device(s) {[str(d) for d in cards]}")
+        if not mixed:
+            u, res, n = self.mg.solve(finest.rhs)
+            self.cycles = n
+            return u, res, n
+        tol = min(float(self.settings.solver.multigrid.tolerance), 1e-10)
+        self.logger.info("sharded mixed-precision refinement (f32 inner cycles, "
+                         "f64 halo defect loop)")
+        u, res, n = self.mg.solve_refined(finest.rhs, tol=tol)
+        self.inner, self.rounds = "cycles", {"cycles": n}
+        if "p" in self.vars and res >= tol:
+            # the single-device rescue: deep hierarchies push the stand-alone
+            # cycle contraction past 1; GMRES(16) preconditioned by the
+            # sharded cycle converges on the isolated divergent modes
+            self.logger.warning(f"sharded mixed refinement stalled at {res:.3e}; "
+                                "retrying with f32 GMRES-wrapped inner cycles")
+            u, res, n = self.mg.solve_refined(finest.rhs, tol=tol, n_inner=16,
+                                              inner="gmres")
+            self.inner, self.rounds["gmres"] = "gmres", n
+        self.outer_rounds = n
         return u, res, n
 
     def _multigrid_solver(self):
@@ -679,6 +739,12 @@ class DGFEM:
             elements_to_vtk(self.solution_visualization_filepath,
                             self.geometry.x, self.geometry.y, lattices)
         self._write_summary_results()
+        if s.visualization.automatically_open_paraview:
+            executable = s.visualization.paraview_executable_path
+            if not executable:
+                raise ValueError("ParaView executable path must be set in paramfile.yml")
+            subprocess.Popen([str(executable),
+                              self.solution_visualization_filepath + ".vts"])
         return u_modal
 
     def _write_summary_header(self, grid_filename):

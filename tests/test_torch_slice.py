@@ -132,37 +132,63 @@ def test_residual_history_leaves_dgtpus_directory(tmp_path, monkeypatch):
     ({"visualization.automatically open paraview": True}, "I/O and tools"),
 ])
 def test_unported_branches_raise(tmp_path, monkeypatch, override, item):
-    """Each branch the port does not have yet (Multi-GPU, I/O and tools)
-    raises, naming its ROADMAP Queue 1 item by title.  The branches that
-    raised until the port had them (an FVM coarse level, caching, the check
-    flags, the physical-element orthonormal basis; the test keeps its name
-    and cases) run as dgtpu's DGFEM runs the same parameters: L2(u) within
-    1e-6 relative (the mixed route stays mixed, the FVM level falls back to
-    full precision), the check flags' results within 1e-8."""
+    """The branches that raised until the port had them (sharding, an FVM
+    coarse level, caching, the check flags, the physical-element
+    orthonormal basis, the sparsity switch, ParaView; the test keeps its
+    name and cases) run as dgtpu's DGFEM runs the same parameters: L2(u)
+    within 1e-6 relative (the mixed route stays mixed, sharded over 2 shards
+    with ``n_shards: 2``, the FVM level falls back to full precision), the
+    check flags' results within 1e-8; the sparsity switch draws no plot in
+    either package; ParaView is started with the same argv apart from each
+    package's output root."""
+    import subprocess
     from dgtpu.api import DGFEM as JDGFEM
     from dgtpu.settings import Settings as JSettings
     monkeypatch.setattr(tapi, "OUTPUT_ROOT", str(tmp_path))
     monkeypatch.setattr(caching, "CACHE_ROOT", str(tmp_path / "cache"))
     params = yaml.safe_load(open(_paramfile(tmp_path, **override)))
-    if item in ("Multi-GPU", "I/O and tools"):
-        with pytest.raises(NotImplementedError, match=f'ROADMAP Queue 1, "{item}"'):
-            tapi.DGFEM(device="cpu", settings=Settings(params), solve_multigrid=True)
-        return
     params["visualization"]["export"] = False
+    key = next(iter(override))
+    launched = []
+    if "paraview" in key:
+        params["visualization"]["paraview executable path"] = "ParaView/bin/paraview"
+        monkeypatch.setattr(subprocess, "Popen", lambda argv: launched.append(argv))
+    plots_before = _sparsity_plots(tmp_path)
     ref = JDGFEM(settings=JSettings(yaml.safe_load(yaml.safe_dump(params))),
                  solve_multigrid=True)
     ref.solve()
     port = tapi.DGFEM(device="cpu", settings=Settings(params), solve_multigrid=True)
     port.solve()
     assert port.L2_error_u == pytest.approx(ref.L2_error_u, rel=1e-6)
-    fvm = "use FVM" in next(iter(override))
-    assert port.cycle_kind == ("full precision" if fvm else "SoA")
+    fvm = "use FVM" in key
+    assert port.cycle_kind == ("full precision" if fvm else "sharded mixed"
+                               if item == "Multi-GPU" else "SoA")
     assert [l.discretization for l in port.levels] == \
         [l.discretization for l in ref.levels]
-    if "check" in next(iter(override)):
+    if "check" in key:
         assert port.diagnostics.keys() == ref.diagnostics.keys() != set()
-        for key, value in ref.diagnostics.items():
-            assert port.diagnostics[key] == pytest.approx(value, rel=1e-8)
+        for name, value in ref.diagnostics.items():
+            assert port.diagnostics[name] == pytest.approx(value, rel=1e-8)
+    if item == "Multi-GPU":
+        assert port.mesh.size == 2 and port.solve_residual < 1e-10
+    if "sparsity" in key:
+        assert port.settings.visualization.plot_sparsity_pattern
+        assert _sparsity_plots(tmp_path) == plots_before
+    if "paraview" in key:
+        (j_argv, t_argv), roots = launched, (tapi.REPO_ROOT, str(tmp_path))
+        assert [j_argv[0], os.path.relpath(j_argv[1], roots[0])] == \
+            [t_argv[0], os.path.relpath(t_argv[1], roots[1])]
+        assert t_argv[1] == port.solution_visualization_filepath + ".vts"
+
+
+def _sparsity_plots(out):
+    """Every sparsity plot below the port's output root ``out`` and below the
+    repository's and the working directory's ``postprocessing`` (dgtpu's
+    plots default to ``postprocessing/plots``)."""
+    roots = (out, os.path.join(tapi.REPO_ROOT, "postprocessing"),
+             os.path.join(os.getcwd(), "postprocessing"))
+    return sorted(os.path.join(d, f) for root in roots for d, _, files in os.walk(root)
+                  for f in files if f.startswith("sparsity"))
 
 
 @pytest.mark.parametrize("override, error, match", [
