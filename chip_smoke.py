@@ -7,6 +7,7 @@ port builds, runs its CUDA kernels and solves on the card.
     python3 chip_smoke.py --parent DIR   # every phase, with DIR's kernels beside
     python3 chip_smoke.py --sharded   # phases 1-2, phase 6's SoA-route solve, phase 24
     python3 chip_smoke.py --bench     # phases 1-2, then phase 25
+    python3 chip_smoke.py --graphs    # phases 1-2, then phase 26
 
 ``--parent DIR`` takes the root of an earlier tree of the repository (for
 example ``git archive <commit> dgtpu_torch/csrc | tar -x -C DIR``): its
@@ -108,8 +109,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      4 levels, R3's per-cell P e + u, geometric restriction and
      prolongation, also in a graph), and R4 four ways beside torch.mv;
  22. the routes outside the mixed multigrid, float64 plain torch on the
-     card (no kernel launches), one line each with its iterations or
-     cycles, status, solve seconds and L1/L2: Stokes ``-d`` (8x8 local and
+     card (no kernel launches; ``-m`` full, the fallback and ``-k`` with the
+     multigrid preconditioner replay their steps as CUDA graphs), one line
+     each with its iterations or cycles, status, solve seconds and L1/L2: Stokes ``-d`` (8x8 local and
      global order, 32x32 global: a dense 22,528-unknown LU),
      ``-m`` in full precision at 8x8 (classical_exact and lsq splittings),
      ``-s`` with distributive GS, the mixed -> full fallback (8x8, factors
@@ -152,7 +154,20 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      solves and 3 constructions each, every solve held to its cell's check
      (residual 1e-10, dgtpu's L2 errors), and the benchmark's last line
      built from the two results: it parses and holds at most 1 KB; the
-     phase's wall time.
+     phase's wall time;
+ 26. the float64 programs dgtpu compiles, as CUDA graphs
+     (``graph_program_phases``): ``MultigridSolver.step`` on ``-m`` in full
+     precision (Poisson 8x8 p5 sequential and red-black V-cycles and
+     Chebyshev W-cycles, Stokes 8x8 DGS lsq and classical_exact), the Krylov
+     multigrid preconditioner (Stokes 8x8 ``-k``) and the 32x32 Stokes
+     mixed route's GMRES(16) correction step, each graph against its eager
+     run bit for bit on the same inputs, the graphed solve against the same
+     loop run eagerly (history, counts and solution), the counts against
+     dgtpu's, the L2 errors within L2_REL_TOL of dgtpu's, eager and graphed
+     seconds and the capture's split (warm-up, record, instantiate); the
+     GMRES step three ways (its cycle and matvec graphed alone, with its
+     arithmetic stages graphed too as the route runs it, and captured whole),
+     each with its round's time and its capture; the phase's wall time.
 Then the launch geometries at which K1, K6 and K7 were held to their plain
 versions (a timed case at any other raises).  The last lines are the
 kernels' JSON record (per kernel: launches on the main paths, worst error
@@ -176,6 +191,7 @@ per call, bytes moved, GB/s).
 
 import contextlib
 import copy
+import gc
 import json
 import logging
 import math
@@ -2469,6 +2485,297 @@ def bench_phase(card):
           f"({card})", flush=True)
 
 
+# -- phase 26 ---------------------------------------------------------------
+# dgtpu's counts for phase 26's cases, computed on a CPU with the JAX
+# reference package (JAX_PLATFORMS=cpu): the cycles of ``-m`` in full
+# precision as len(dg.residuals) - 1 of dgtpu.__main__.main(['-m', '--silent',
+# '--backend', 'cpu', '--paramfile', P]) on the paramfile P that phase 26
+# writes for the case (Poisson 8x8 p5 sequential and red-black:
+# DGTPU_L2_8X8_P5_FULL); the restarts of ``-k`` as the fewest ``maxiter`` with
+# which dgtpu.solvers.krylov.solve_krylov(level, settings, maxiter=k,
+# mg_cycle=dg._krylov_mg_cycle()) returns the solution of an unbounded
+# ``maxiter`` bit for bit
+DGTPU_GRAPH_COUNTS = {"poisson_chebyshev_W": 13, "stokes_lsq": 14,
+                      "stokes_classical_exact": 36, "stokes_krylov": 1}
+# phase 26's Poisson W-cycle with Chebyshev smoothing (degree 3, the
+# interval [0.3 lmax, lmax] from each level's power iteration) on every
+# level, to RES_TOL: each package estimates lmax from its own start vector,
+# so the two iterates part at the shipped 1e-6 (8 cycles each, L2(u) 5.8e-6
+# apart); at 1e-10 both take 13 cycles to the discrete solution
+CHEBYSHEV_W = {"solver.multigrid.cycle type": "W", "solver.multigrid.tolerance": RES_TOL,
+               **{f"solver.multigrid.{c}.{side}.{key}": value
+                  for c in ("polynomial coarsening", "geometric coarsening")
+                  for side in ("pre smoother", "post smoother")
+                  for key, value in (("smoother", "chebyshev"), ("iterations", 3))}}
+# the 32x32 Stokes mixed route's outer rounds: 20 plain rounds that stall,
+# then the GMRES(16) retry's; the port's count before any of the retry's
+# arithmetic was a graph (the benchmark's stokes32_p2p1_mixed cell, whose
+# refine.rounds counter reads 26).  dgtpu's own count at 32x32 is not
+# computed: its mixed Stokes route on the CPU runs its Pallas kernels in
+# interpret mode, past 30 GB of host memory while compiling
+STOKES32_ROUNDS = {"cycles": 20, "gmres": 6}
+# the outer rounds that decide whether the GMRES(16) correction step pays
+# for its one graph: the 32x32 Stokes retry's rounds
+GMRES_ROUNDS = STOKES32_ROUNDS["gmres"]
+
+
+def graph_program_phases(card):
+    """Phase 26: the float64 programs dgtpu compiles, replayed as CUDA graphs
+    on the card (``ops/graphs.CycleGraph``), each against its eager run:
+    ``MultigridSolver.step`` on the ``-m`` routes in full precision (Poisson
+    8x8 p5 sequential and red-black, a W-cycle with Chebyshev smoothing;
+    Stokes 8x8 with DGS lsq and classical_exact), the Krylov multigrid
+    preconditioner (Stokes 8x8 ``-k``), and the GMRES(16) correction step of
+    the 32x32 Stokes mixed route's retry.  Each case: the route through the
+    CLI (graphed: its counts against dgtpu's, its L2 errors within
+    L2_REL_TOL of dgtpu's); its graph replayed on two inputs against the
+    eager call; a second graphed solve against the same loop run eagerly
+    (history, counts and solution bit for bit), with the seconds of each and
+    the capture's split.  A difference is printed with its size and fails
+    the phase at its end.  The phase's wall time last."""
+    import numpy as np
+    import torch
+    import yaml
+    from dgtpu_torch.__main__ import main as cli
+    from dgtpu_torch.api import DGFEM
+    from dgtpu_torch.ops.graphs import CycleGraph
+    from dgtpu_torch.settings import Settings
+    from dgtpu_torch.solvers.krylov import solve_krylov
+    from dgtpu_torch.solvers.refinement import gmres_step
+    from dgtpu_torch.utils.norms import lp_norm
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(26)
+    failures = []
+
+    def same(label, got, ref):
+        """'bit for bit', or the largest difference (a failure)."""
+        if all(torch.equal(a, b) for a, b in zip(got, ref)):
+            return "bit for bit"
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        failures.append(f"{label}: graph differs from eager by {diff:.3e}")
+        return f"NOT bit for bit (largest difference {diff:.3e})"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def split(g):
+        return (f"capture {g.capture_seconds:.3f} s: warm-up {g.warmup_seconds:.3f}, "
+                f"record {g.record_seconds:.3f}, instantiate {g.instantiate_seconds:.3f}")
+
+    def resident(label, dg, n=3):
+        """MB allocated on the card after each of ``n`` more solves of
+        ``dg``'s route, then after a garbage collection: a graph that
+        outlives its solve shows as growth (a failure)."""
+        mb = []
+        for _ in range(n):
+            dg.solve()
+            torch.cuda.synchronize()
+            mb.append(torch.cuda.memory_allocated() / 1e6)
+        gc.collect()
+        mb.append(torch.cuda.memory_allocated() / 1e6)
+        if mb[n - 1] > mb[0] + 1.0:
+            failures.append(f"{label}: {mb[0]:.1f} MB held after one solve, "
+                            f"{mb[n - 1]:.1f} MB after {n}")
+        return (f"{', '.join(f'{m:.1f}' for m in mb[:n])} MB held after {n} more "
+                f"solves, {mb[n]:.1f} MB after a garbage collection")
+
+    def held(label, dg, count, ref, l2, vars_):
+        rel = {v: abs(getattr(dg, f"L2_error_{v}") - l2[v]) / l2[v] for v in vars_}
+        if ref is not None and count != ref:
+            failures.append(f"{label}: {count}, dgtpu {ref}")
+        if not all(r < L2_REL_TOL for r in rel.values()):
+            failures.append(f"{label}: L2 errors off dgtpu's: {rel}")
+        return {v: float(f"{r:.2e}") for v, r in rel.items()}
+
+    def multigrid_case(label, dg, ref, l2, vars_, memory=False):
+        mg, rhs = dg.mg, dg.levels[-1].rhs
+        A = mg.ops[-1]
+        u1 = torch.as_tensor(rng.standard_normal(rhs.shape), device="cuda")
+        bits = [same(label, mg.graph(rhs, u), mg.step(rhs, u))
+                for u in (torch.zeros_like(rhs), u1)]
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        (u, res, n, hist), graphed_s = timed(lambda: mg.solve(rhs))
+        peak_mb = (torch.cuda.max_memory_allocated() - start) / 1e6
+        g = mg.graph
+        mgs = dg.settings.solver.multigrid
+
+        def eager():
+            # solve()'s loop around the step itself, on the same solver
+            ue = torch.zeros_like(rhs)
+            res0 = float(lp_norm(rhs - A.matvec(ue), 2))
+            r = float(lp_norm(rhs - A.matvec(ue), 2)) / res0
+            h = []
+            while len(h) < int(mgs.max_cycles) and r >= float(mgs.tolerance) \
+                    and math.isfinite(r):
+                h.append(r)
+                ue, rn = mg.step(rhs, ue)
+                r = float(rn) / res0
+            return ue, h + [r]
+
+        (ue, eh), eager_s = timed(eager)
+        loop = same(f"{label} solve", (u, torch.tensor(hist)), (ue, torch.tensor(eh)))
+        if not dg.cycles == n == len(eh) - 1:
+            failures.append(f"{label}: route {dg.cycles}, graphed {n}, eager "
+                            f"{len(eh) - 1} cycles")
+        rel = held(label, dg, n, ref, l2, vars_)
+        route = (f"the route: solve {dg.solve_seconds:.3f} s + capture "
+                 f"{dg.graph_seconds:.3f} s")
+        if memory:
+            route += f"; {resident(label, dg)}"
+        print(f"[26] {label}: {n} cycles (dgtpu {ref}), residual {res:.3e}; step graph "
+              f"against the eager step on 2 inputs: {', '.join(bits)}; graphed solve "
+              f"against the eager loop (history, cycles, u): {loop}; L2 rel to dgtpu "
+              f"{rel}; eager {eager_s:.3f} s ({eager_s / n * 1e3:.2f} ms a cycle), "
+              f"graphed {graphed_s:.3f} s ({split(g)}; "
+              f"{(graphed_s - g.capture_seconds) / n * 1e3:.2f} ms a replayed cycle; "
+              f"{peak_mb:.1f} MB at its peak above the start); {route} ({card})",
+              flush=True)
+
+    def stokes(n, **overrides):
+        params = stokes_params(n)
+        params["performance"]["precision"] = "full"
+        for path, value in overrides.items():
+            node = params
+            *keys, leaf = path.split(".")
+            for k in keys:
+                node = node[k]
+            node[leaf] = value
+        return params
+
+    def run(tmp, name, argv, params):
+        path = os.path.join(tmp, f"{name}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(params, f)
+        return cli(argv + ["--silent", "--device", "cuda", "--paramfile", path])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- MultigridSolver.step: Poisson 8x8 p5 ---------------------------
+        for strategy, (l2_ref, n_ref) in DGTPU_L2_8X8_P5_FULL.items():
+            path = write_paramfile(tmp, f"{strategy}.yml",
+                                   **{"performance.smoother_parallelization": strategy})
+            dg = cli(["-m", "--silent", "--device", "cuda", "--paramfile", path])
+            multigrid_case(f"Poisson 8x8 p5 -m full, {strategy} V-cycles", dg, n_ref,
+                           {"u": l2_ref}, "u", memory=strategy == "sequential")
+        path = write_paramfile(tmp, "chebyshev.yml", **CHEBYSHEV_W)
+        dg = cli(["-m", "--silent", "--device", "cuda", "--paramfile", path])
+        multigrid_case("Poisson 8x8 p5 -m full, Chebyshev (degree 3) W-cycles to 1e-10",
+                       dg, DGTPU_GRAPH_COUNTS["poisson_chebyshev_W"],
+                       {"u": DGTPU_L2_8X8_P5}, "u")
+        # -- MultigridSolver.step: Stokes 8x8, distributive GS --------------
+        for splitting in ("lsq", "classical_exact"):
+            dg = run(tmp, f"stokes_{splitting}", ["-m"], stokes(8, **{
+                "performance.dgs_splitting": splitting,
+                "solver.multigrid.tolerance": RES_TOL}))
+            multigrid_case(f"Stokes 8x8 -m full, DGS {splitting} W-cycles", dg,
+                           DGTPU_GRAPH_COUNTS[f"stokes_{splitting}"],
+                           DGTPU_STOKES_L2[8], "uvp")
+        # -- the Krylov multigrid preconditioner: Stokes 8x8 -k --------------
+        dg = run(tmp, "stokes_k", ["-k"], stokes(8, **{
+            "solver.krylov.preconditioner": "multigrid",
+            "solver.krylov.tolerance": RES_TOL,
+            "solver.krylov.absolute tolerance": 0.0}))
+        finest, k = dg.levels[-1], len(dg.mg.ops)
+
+        def cycle(r):
+            return dg.mg.v_cycle(k, r, torch.zeros_like(r))
+
+        g = CycleGraph(cycle, "krylov.capture")
+        bits = []
+        for _ in range(2):
+            r = torch.as_tensor(rng.standard_normal(finest.rhs.shape), device="cuda")
+            bits.append(same("Stokes -k preconditioner", (g(r),), (cycle(r),)))
+        g = CycleGraph(cycle, "krylov.capture")
+        (ug, kg), graphed_s = timed(lambda: solve_krylov(finest, dg.settings, mg_cycle=g))
+        (ue, ke), eager_s = timed(lambda: solve_krylov(finest, dg.settings,
+                                                       mg_cycle=cycle))
+        loop = same("Stokes -k solve", (ug,), (ue,))
+        if not dg.krylov_iterations == kg == ke:
+            failures.append(f"Stokes -k: route {dg.krylov_iterations}, graphed {kg}, "
+                            f"eager {ke} restarts")
+        rel = held("Stokes -k", dg, kg, DGTPU_GRAPH_COUNTS["stokes_krylov"],
+                   DGTPU_STOKES_L2[8], "uvp")
+        print(f"[26] Stokes 8x8 -k GMRES({dg.settings.solver.krylov.restart}) with the "
+              f"multigrid preconditioner (DGS lsq W-cycle): {kg} restarts (dgtpu "
+              f"{DGTPU_GRAPH_COUNTS['stokes_krylov']}); preconditioner graph against the eager cycle on 2 inputs: "
+              f"{', '.join(bits)}; graphed Krylov solve against the eager one (u): "
+              f"{loop}; L2 rel to dgtpu {rel}; eager {eager_s:.3f} s, graphed "
+              f"{graphed_s:.3f} s ({split(g)}); the route: solve {dg.solve_seconds:.3f} "
+              f"s + capture {dg.graph_seconds:.3f} s ({card})", flush=True)
+
+    # -- the GMRES(16) correction step: the 32x32 Stokes mixed route --------
+    dg = DGFEM(device="cuda", settings=Settings(stokes_params(32)), solve_multigrid=True)
+    reset_counts()
+    _, route_s = timed(dg.solve)
+    route = counts()
+    rel = check_stokes_errors(dg, 32)
+    solve_s, graph_s = dg.solve_seconds, dg.graph_seconds
+    memory = resident("the 32x32 Stokes route", dg)
+    if dg.rounds != STOKES32_ROUNDS or not dg.solve_residual < RES_TOL:
+        failures.append(f"the 32x32 Stokes route: rounds {dg.rounds}, residual "
+                        f"{dg.solve_residual:.3e}")
+    print(f"[26] 32x32 Stokes mixed route: outer rounds {dg.rounds} (held to "
+          f"{STOKES32_ROUNDS}), inner {dg.inner}, "
+          f"residual {dg.solve_residual:.3e}, L2 rel to dgtpu {rel}; {route_s:.3f} s "
+          f"(solve {solve_s:.3f} s + captures {graph_s:.3f} s: the "
+          f"cycle's, the matvec's and the GMRES step's 18 stages'); {memory}; "
+          f"launches {route} ({card})", flush=True)
+    cycle = stokes_cycle_of(dg)
+    matvec = cycle.build_matvec()
+    r1 = dg.levels[-1].rhs.to(torch.float32)
+    r2 = torch.as_tensor(rng.standard_normal(r1.shape), dtype=torch.float32, device="cuda")
+    eager = gmres_step(matvec, cycle, 16)
+    (e1,), eager_s = timed(lambda: (eager(r1),))
+    e2 = eager(r2)
+    # three ways to run the step on the card: the cycle and the matvec each
+    # a graph and the arithmetic between them eager (``alone``, before the
+    # stages were graphs); that, with each arithmetic stage a graph too
+    # (``staged``, the route's); the whole step one graph (``one``, which
+    # costs more to capture than it saves)
+    pair = (CycleGraph(matvec), CycleGraph(cycle))
+    stage_graphs = []
+
+    def stage_graph(fn):
+        stage_graphs.append(CycleGraph(fn, "refine.capture"))
+        return stage_graphs[-1]
+
+    ways = {"alone": gmres_step(*pair, 16),
+            "staged": gmres_step(*pair, 16, graph=stage_graph),
+            "one": CycleGraph(gmres_step(matvec, cycle, 16), "refine.capture")}
+    rows = {}
+    for name, step in ways.items():
+        bits = [same(f"GMRES(16) step, {name}", (step(r),), (e,))
+                for r, e in ((r1, e1), (r2, e2))]
+        t = timed(lambda: [step(r1) for _ in range(3)])[1] / 3
+        reset_counts()
+        step(r1)
+        torch.cuda.synchronize()
+        rows[name] = (bits, t, sum(counts().values()))
+    capture = {"alone": 0.0, "staged": sum(g.capture_seconds for g in stage_graphs),
+               "one": ways["one"].capture_seconds - sum(g.capture_seconds for g in pair)}
+    text = "; ".join(
+        f"{name}: {', '.join(bits)}, {t * 1e3:.1f} ms a round, {n} kernel launches, "
+        f"capture {capture[name]:.3f} s beyond the cycle's and matvec's"
+        + ("" if name == "alone" else
+           f", {GMRES_ROUNDS * (rows['alone'][1] - t):.3f} s saved over "
+           f"{GMRES_ROUNDS} rounds")
+        for name, (bits, t, n) in rows.items())
+    print(f"[26] 32x32 Stokes GMRES(16) correction step (17 W-cycles, 16 matvecs), "
+          f"against the eager step (eager {eager_s:.3f} s) on 2 inputs: {text}; the one "
+          f"graph's {split(ways['one'])}; {len(stage_graphs)} stage graphs "
+          f"({card})", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"[26] the graphed float64 programs took {wall:.1f} s of wall time ({card})",
+          flush=True)
+    if failures:
+        raise AssertionError("phase 26: " + "; ".join(failures))
+
+
 def check_rolled(worst):
     """Each rolled kernel's worst error so far within ROLLED_REL_TOL."""
     from dgtpu_torch.ops import vcycle
@@ -2502,6 +2809,8 @@ def main():
                              "then phase 24")
     parser.add_argument("--bench", action="store_true",
                         help="phases 1-2, then phase 25")
+    parser.add_argument("--graphs", action="store_true",
+                        help="phases 1-2, then phase 26")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2545,6 +2854,10 @@ def main():
 
     if opts.bench:
         bench_phase(card)
+        print(card)
+        return 0
+    if opts.graphs:
+        graph_program_phases(card)
         print(card)
         return 0
 
@@ -2855,6 +3168,10 @@ def main():
 
     # -- 25: the benchmark's cell runner -------------------------------------
     bench_phase(card)
+
+    # -- 26: the float64 programs as CUDA graphs, against their eager runs ---
+    reset_counts()
+    graph_program_phases(card)
 
     paths = {"poisson_8x8": launches, "poisson_64x64_hybrid": launches64,
              "poisson_64x64_hybrid_bf16": launches64_bf16,

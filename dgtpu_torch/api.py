@@ -123,6 +123,7 @@ class DGFEM:
                                "available (pass device='cpu' for a CPU run)")
 
         self.logger = Logger(__name__, self.settings).logger
+        self._graphs = []
 
         for key, arg in kwargs.items():
             if "solve_" in key and arg:
@@ -365,7 +366,9 @@ class DGFEM:
             self.logger.warning(
                 "performance.n_shards only applies to the multigrid solver; "
                 f"running {method} single-device")
-        self.graph_seconds = 0.0
+        # the CUDA graphs this solve captures (``_graphed``): their capture
+        # seconds go to ``graph_seconds``, apart from ``solve_seconds``
+        self._graphs = []
         # the mixed route's last float32 cycle and its operand bytes; dropped
         # here so that two cycles never sit on the device at once
         self.cycle = self.cycle_bytes = None
@@ -407,6 +410,9 @@ class DGFEM:
                 raise NotImplementedError(method)
             with trace.span("solve.sync"):
                 synchronize(u_modal)
+        self.graphed = bool(self._graphs)
+        self.graph_seconds = sum(g.capture_seconds for g in self._graphs)
+        self._graphs = []
         self.solve_seconds = t.elapsed() - self.graph_seconds
         if method == "multigrid":
             self.logger.info(f"multigrid: {int(n)} cycles or outer rounds, final "
@@ -422,10 +428,14 @@ class DGFEM:
         ``MultigridSolver`` with the configured smoothers (sequential or
         red-black, ``performance.smoother_parallelization``; distributive GS
         on Stokes, ``performance.dgs_splitting``) to
-        ``solver.multigrid.tolerance``."""
+        ``solver.multigrid.tolerance``.  On the card each cycle and its
+        residual norm replay as one CUDA graph (``MultigridSolver.step``),
+        as dgtpu compiles its solve loop."""
         with trace.span("mg.build"):
             self.mg = self._multigrid_solver()
         u, res, n, hist = self.mg.solve(finest.rhs)
+        if self.mg.graph is not None:
+            self._graphs.append(self.mg.graph)
         self.residuals = [r for r in hist if math.isfinite(r)]
         self.cycle_kind = "full precision"
         return u, res, n
@@ -496,12 +506,21 @@ class DGFEM:
                                self.transfer_types, self.settings, colors=colors,
                                levels=self.levels)
 
+    def _graphed(self, fn, name="solve.capture"):
+        """``fn`` as a ``CycleGraph`` on the card, counted in this solve's
+        ``graph_seconds``; ``fn`` itself on the CPU."""
+        if self.device.type != "cuda":
+            return fn
+        self._graphs.append(CycleGraph(fn, name))
+        return self._graphs[-1]
+
     def _krylov_mg_cycle(self):
         """One multigrid cycle from zero as the Krylov preconditioner
         application (dgtpu's ``_krylov_mg_cycle``, ``api.py:395-426``), or
         None unless ``solver.krylov.preconditioner: multigrid``.  A cycle
-        from a zero guess is a fixed linear operator.  It runs eagerly (dgtpu
-        jits it)."""
+        from a zero guess is a fixed linear operator.  dgtpu jits it; on the
+        card it is a CUDA graph, captured at the Krylov solve's first
+        preconditioner application and replayed at every later one."""
         if not _wants_mg_precond(self.settings):
             return None
         if len(self.levels) < 2:
@@ -514,7 +533,7 @@ class DGFEM:
         def cycle(r):
             return self.mg.v_cycle(k, r, torch.zeros_like(r))
 
-        return cycle
+        return self._graphed(cycle, "krylov.capture")
 
     def _solve_smoother(self, finest):
         """The stand-alone smoother solve (``-s --smoother NAME``): symmetric
@@ -558,11 +577,12 @@ class DGFEM:
         refinement stalls and the cycle has a matvec (the Stokes cycles:
         deep hierarchies push the stand-alone contraction past 1), the
         refinement retries with GMRES(16)-wrapped cycles (``api.py:557-578``).
-        On the card the chosen cycle (and the GMRES retry's matvec) is
-        captured once as a CUDA graph and replayed (``ops/graphs.py``): dgtpu
-        compiles its refined solve into one XLA program, the port replays a
-        captured cycle; the captures' seconds go to ``graph_seconds``, apart
-        from ``solve_seconds``.  The route and the cut are left in
+        On the card the chosen cycle is captured once as a CUDA graph and
+        replayed (``ops/graphs.py``), and so are the GMRES retry's matvec
+        and the arithmetic stages of its correction step: dgtpu compiles its
+        refined solve into one XLA program, the port replays captured
+        pieces; the captures' seconds go to ``graph_seconds``, apart from
+        ``solve_seconds``.  The route and the cut are left in
         ``cycle_kind`` and ``cut``, the cycle in ``cycle`` and its operand
         bytes, each counted once, in ``cycle_bytes``."""
         s = self.settings
@@ -627,15 +647,7 @@ class DGFEM:
         self.cycle, self.cycle_bytes = cycle, held
         self.logger.info(f"inner cycle: {kind}, device bytes {held} against the "
                          f"budget {budget}, cut {self.cut}")
-        graphs = []
-
-        def graphed(fn):
-            if self.device.type != "cuda":
-                return fn
-            graphs.append(CycleGraph(fn))
-            return graphs[-1]
-
-        run = graphed(cycle)
+        run = self._graphed(cycle)
         rhs = finest.rhs
         u0 = torch.zeros_like(rhs)
         if fmg_on:
@@ -659,9 +671,12 @@ class DGFEM:
                 f"mixed-precision refinement stalled at {res:.3e}; retrying "
                 "with f32 GMRES-wrapped inner cycles")
             with trace.span("solve.gmres_retry"):
+                # on the card the cycle, the matvec and each arithmetic
+                # stage of the GMRES(16) correction step replay as graphs
                 refined = make_refined_solver(
                     finest.op, run, n_inner=16, tol=tol, normalize=normalize,
-                    inner="gmres", matvec32=graphed(cycle.build_matvec()))
+                    inner="gmres", matvec32=self._graphed(cycle.build_matvec()),
+                    graph=lambda stage: self._graphed(stage, "refine.capture"))
                 u, res, n, hist = refined(rhs, u0)
             self.residuals += [r for r in hist if math.isfinite(r)]
             self.inner, self.rounds["gmres"] = "gmres", n
@@ -671,8 +686,6 @@ class DGFEM:
             self.logger.warning(
                 f"mixed-precision refinement stopped at {res:.3e} "
                 f"(tolerance {tol:g})")
-        self.graphed = bool(graphs)
-        self.graph_seconds = sum(g.capture_seconds for g in graphs)
         return u, res, n
 
     @trace.traced("solve.history")

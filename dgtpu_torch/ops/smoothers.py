@@ -215,7 +215,8 @@ def block_gauss_seidel(op, rhs, u, direction="symmetric", omega=1.0, iterations=
     ``direction``: 'forward' | 'backward' | 'symmetric' (forward then backward
     per iteration, pyamg_relaxation.py:240-250).  ``fronts``: the
     (forward, backward) wavefronts of the sequential sweep
-    (``sweep_fronts``), computed here when not given.
+    (``sweep_fronts``), computed here when not given: on the host, so a
+    caller inside a captured step (``MultigridSolver``) passes them.
     """
     if Dinv is None:
         Dinv = block_diag_inv(op)

@@ -9,6 +9,14 @@ splitting ``performance.dgs_splitting``, default ``classical_exact``).  The
 outer tolerance loop is a host loop that carries the residual history (the
 reference pickles it for its plots; it is returned here).  Divergence (a non-finite residual) ends
 the loop instead of the reference's ``exit()``.
+
+dgtpu compiles the whole loop (one jitted ``while_loop``).  The port runs
+each cycle and its residual norm as one ``step``, which on the card is a
+CUDA graph captured once per solve and replayed once per cycle
+(``ops/graphs.CycleGraph``); the host reads one scalar per cycle.  A step
+holds no host synchronisation: every host-side table (the sweeps'
+wavefronts, the color packs, the Chebyshev intervals, the coarse inverse)
+is built in the constructor.
 """
 
 import math
@@ -17,6 +25,7 @@ from dataclasses import replace
 import torch
 
 from dgtpu_torch.models.stokes import make_dgs
+from dgtpu_torch.ops.graphs import CycleGraph
 from dgtpu_torch.ops.linalg import host_lu_inverse
 from dgtpu_torch.ops.smoothers import (SMOOTHER_ALIASES, ColorPack, apply_smoother,
                                        block_diag_inv, estimate_rho_dinv_a,
@@ -84,6 +93,7 @@ class MultigridSolver:
         # full multigrid (nested iteration): solve coarsest first, prolong
         # upward with one cycle per level
         self.full_multigrid = bool(getattr(mg, "full_multigrid", False))
+        self.graph = None
         # dense inverse cached at setup; applied as one product per visit.  A
         # Stokes saddle operator needs its pressure pin to be invertible
         self.coarse_inv = None
@@ -195,6 +205,15 @@ class MultigridSolver:
 
     # -- outer tolerance loop -------------------------------------------------
 
+    def step(self, rhs, u):
+        """One ``cycle_type`` cycle from ``u`` and the norm of its residual:
+        ``(u_next, lp_norm(rhs - A u_next))``, both tensors, no host read
+        (the body of dgtpu's ``while_loop``, less the normalization)."""
+        u = self.v_cycle(len(self.ops), rhs, u)
+        with trace.span("mg.residual"):
+            res = lp_norm(rhs - self.ops[-1].matvec(u), 2)
+        return u, res
+
     def solve(self, rhs, u0=None, tol=None, max_cycles=None):
         """Run cycles to tolerance; returns (u, final_residual, n_cycles,
         history).
@@ -202,13 +221,14 @@ class MultigridSolver:
         ``history[i]`` is the normalized residual *before* cycle i (so
         history[0] == 1.0 from a zero guess), matching the reference's
         pickled residual lists (solver.py:118-123); its last entry is the
-        final residual.
+        final residual.  On CUDA tensors every cycle replays ``step`` as a
+        CUDA graph, kept in ``graph`` (None on the CPU, where ``step`` runs
+        as it is).
         """
         mg = self.settings.solver.multigrid
         tol = float(tol if tol is not None else mg.tolerance)
         max_cycles = int(max_cycles if max_cycles is not None else mg.max_cycles)
         A = self.ops[-1]
-        n_lev = len(self.ops)
         u = torch.zeros_like(rhs) if u0 is None else u0
         # the normalization stays ||rhs - A*0|| = ||rhs|| when FMG supplies
         # the guess, so "res <= tol" keeps the reference's meaning (relative
@@ -220,17 +240,17 @@ class MultigridSolver:
         else:
             res0 = float(lp_norm(rhs - A.matvec(u), 2))
         res = float(lp_norm(rhs - A.matvec(u), 2)) / res0
+        self.graph = CycleGraph(self.step, "mg.capture") if rhs.is_cuda else None
+        step = self.graph or self.step
         history = []
         n = 0
         while n < max_cycles and res >= tol and math.isfinite(res):
             with trace.span("mg.cycle", cycle=n):
                 history.append(res)
-                u = self.v_cycle(n_lev, rhs, u)
-                with trace.span("mg.residual"):
-                    r = rhs - A.matvec(u)
+                u, r = step(rhs, u)
                 # the host reads the residual: it waits for the cycle's work
                 with trace.span("mg.wait"):
-                    res = float(lp_norm(r, 2)) / res0
+                    res = float(r) / res0
             trace.count("mg.cycles")
             n += 1
         history.append(res)

@@ -30,7 +30,7 @@ from dgtpu_torch.utils.norms import lp_norm
 
 
 def make_refined_solver(op64, cycle32, n_inner=8, tol=1e-10, max_outer=20,
-                        normalize="u0", inner="cycles", matvec32=None):
+                        normalize="u0", inner="cycles", matvec32=None, graph=None):
     """Build the mixed-precision solver.
 
     ``op64``: the float64 operator (``matvec``).  ``cycle32(rhs32, u32)``:
@@ -40,7 +40,13 @@ def make_refined_solver(op64, cycle32, n_inner=8, tol=1e-10, max_outer=20,
     relative-to-zero-iterate meaning.  ``inner``: 'cycles' applies
     ``n_inner`` cycles from zero to each defect; 'gmres' runs ``n_inner``
     steps of float32 GMRES preconditioned by one cycle (needs
-    ``matvec32``, the float32 operator).
+    ``matvec32``, the float32 operator).  ``graph``: applied once to each
+    arithmetic stage of that GMRES correction step (``gmres_step``); the
+    orchestrator passes ``CycleGraph`` on the card, with the cycle and the
+    matvec graphs of their own, so that every piece of a round replays
+    (dgtpu compiles the whole refined solve).  One graph of the whole step
+    repays its capture in no round: the step waits on its 17 cycles
+    (PERF.md, Findings).
 
     Returns solve(rhs64, u0) -> (u, res, n_outer, history): ``history`` is
     the list of normalized residuals, one per outer round plus the last.
@@ -53,7 +59,7 @@ def make_refined_solver(op64, cycle32, n_inner=8, tol=1e-10, max_outer=20,
         if matvec32 is None:
             raise ValueError("inner='gmres' requires matvec32 (the f32 "
                              "operator matvec)")
-        inner_solve = _make_gmres_inner(matvec32, cycle32, n_inner)
+        inner_solve = gmres_step(matvec32, cycle32, n_inner, graph)
     else:
         def inner_solve(r32):
             e = torch.zeros_like(r32)
@@ -91,61 +97,98 @@ def make_refined_solver(op64, cycle32, n_inner=8, tol=1e-10, max_outer=20,
     return solve
 
 
-def gmres_correction(AM, M, r, m, dot=None, norm=None):
+def gmres_correction(AM, M, r, m, dot=None, norm=None, stages=None):
     """e = M z, where z approximately minimizes ``||r - A M z||`` over the
     m-step Krylov space: the correction step of right-preconditioned
-    GMRES(m) with a zero initial guess (dgtpu's ``gmres_correction``).
+    GMRES(m) with a zero initial guess (dgtpu's ``gmres_correction``).  No
+    host read: the Arnoldi coefficients, the Givens rotations and the
+    back-substitution stay on the device.
 
     ``AM(x)`` applies the preconditioned operator A M; ``M(x)`` the
     preconditioner alone (one multigrid cycle from zero).  Modified
     Gram-Schmidt Arnoldi, then an explicit Givens QR of the (m+1) x m
     Hessenberg matrix and back-substitution; a happy breakdown or a zero
     pivot drops that direction.  Right preconditioning keeps the minimized
-    residual that of the true system."""
+    residual that of the true system.  ``stages``: the arithmetic between
+    the applications of AM and M (``gmres_stages``), run as given (for
+    example each a CUDA graph); built here when None."""
+    start, arnoldi, finish = stages or gmres_stages(m, dot, norm)
+    beta, v, H = start(r)
+    V = [v]
+    for j in range(m):
+        H, v = arnoldi[j](H, AM(V[j]), *V)
+        V.append(v)
+    return M(finish(H, beta, *V[:m]))
+
+
+def gmres_stages(m, dot=None, norm=None):
+    """The arithmetic of ``gmres_correction`` as fixed-shape callables of
+    tensors: ``start(r) -> (beta, v0, H)``; ``arnoldi[j](H, w, v0..vj) ->
+    (H, v_{j+1})``, step j of the modified Gram-Schmidt Arnoldi process
+    (column j of the Hessenberg matrix H); ``finish(H, beta, v0..v_{m-1})
+    -> z``, the Givens QR of H, the back-substitution and z = V y.  None
+    writes into its inputs (a CUDA graph's warm-up runs on its static
+    inputs)."""
     dot = torch.dot if dot is None else dot
     norm = torch.linalg.norm if norm is None else norm
-    dt = r.dtype
-    tiny = torch.tensor(1e-35 if dt == torch.float32 else 1e-300, dtype=dt,
-                        device=r.device)
 
-    beta = norm(r)
-    V = [r / torch.maximum(beta, tiny)]
-    H = torch.zeros((m + 1, m), dtype=dt, device=r.device)
-    for j in range(m):
-        w = AM(V[j])
-        for i in range(j + 1):                  # modified Gram-Schmidt
-            hij = dot(V[i], w).to(dt)
-            H[i, j] = hij
-            w = w - hij * V[i]
-        hj1 = norm(w).to(dt)
-        H[j + 1, j] = hj1
-        V.append((hj1 > tiny).to(dt) * w / torch.maximum(hj1, tiny))
-    g = torch.zeros((m + 1,), dtype=dt, device=r.device)
-    g[0] = beta
-    R = H
-    for j in range(m):
-        a, b = R[j, j], R[j + 1, j]
-        safe = torch.maximum(torch.sqrt(a * a + b * b), tiny)
-        c, s = a / safe, b / safe
-        row_j, row_j1 = c * R[j] + s * R[j + 1], -s * R[j] + c * R[j + 1]
-        R[j], R[j + 1] = row_j, row_j1
-        gj, gj1 = c * g[j] + s * g[j + 1], -s * g[j] + c * g[j + 1]
-        g[j], g[j + 1] = gj, gj1
-    y = [None] * m
-    for i in reversed(range(m)):
-        acc = g[i]
-        for k in range(i + 1, m):
-            acc = acc - R[i, k] * y[k]
-        ok = R[i, i].abs() > tiny
-        y[i] = torch.where(ok, acc / torch.where(ok, R[i, i], torch.ones_like(acc)),
-                           torch.zeros_like(acc))
-    z = sum(y[j] * V[j] for j in range(m))
-    return M(z)
+    def tiny(x):
+        # a fill on the device, not a copy from the host: a stage is captured
+        return torch.full((), 1e-35 if x.dtype == torch.float32 else 1e-300,
+                          dtype=x.dtype, device=x.device)
+
+    def start(r):
+        beta = norm(r)
+        H = torch.zeros((m + 1, m), dtype=r.dtype, device=r.device)
+        return beta, r / torch.maximum(beta, tiny(r)), H
+
+    def arnoldi_step(j):
+        def step(H, w, *V):
+            H, dt = H.clone(), H.dtype
+            for i in range(j + 1):              # modified Gram-Schmidt
+                hij = dot(V[i], w).to(dt)
+                H[i, j] = hij
+                w = w - hij * V[i]
+            hj1, t = norm(w).to(dt), tiny(H)
+            H[j + 1, j] = hj1
+            return H, (hj1 > t).to(dt) * w / torch.maximum(hj1, t)
+        return step
+
+    def finish(H, beta, *V):
+        R, t = H.clone(), tiny(H)
+        g = torch.zeros((m + 1,), dtype=R.dtype, device=R.device)
+        g[0] = beta
+        for j in range(m):
+            a, b = R[j, j], R[j + 1, j]
+            safe = torch.maximum(torch.sqrt(a * a + b * b), t)
+            c, s = a / safe, b / safe
+            row_j, row_j1 = c * R[j] + s * R[j + 1], -s * R[j] + c * R[j + 1]
+            R[j], R[j + 1] = row_j, row_j1
+            gj, gj1 = c * g[j] + s * g[j + 1], -s * g[j] + c * g[j + 1]
+            g[j], g[j + 1] = gj, gj1
+        y = [None] * m
+        for i in reversed(range(m)):
+            acc = g[i]
+            for k in range(i + 1, m):
+                acc = acc - R[i, k] * y[k]
+            ok = R[i, i].abs() > t
+            y[i] = torch.where(ok, acc / torch.where(ok, R[i, i], torch.ones_like(acc)),
+                               torch.zeros_like(acc))
+        return sum(y[j] * V[j] for j in range(m))
+
+    return start, [arnoldi_step(j) for j in range(m)], finish
 
 
-def _make_gmres_inner(matvec32, cycle32, n_inner):
-    """inner_solve(r32) -> e32 via ``gmres_correction`` over the float32
-    cycle."""
+def gmres_step(matvec32, cycle32, n_inner, graph=None):
+    """The correction step ``r32 -> e32``: ``gmres_correction`` with
+    ``n_inner`` Arnoldi steps over the float32 cycle from zero as M.  It
+    reads nothing back to the host.  ``graph``: applied once to each of its
+    arithmetic stages (``gmres_stages``), which the step then runs between
+    the cycle and matvec calls."""
+    stages = gmres_stages(n_inner)
+    if graph is not None:
+        start, arnoldi, finish = stages
+        stages = graph(start), [graph(a) for a in arnoldi], graph(finish)
 
     def inner_solve(r32):
         dt = r32.dtype
@@ -156,6 +199,6 @@ def _make_gmres_inner(matvec32, cycle32, n_inner):
         def AM(x):
             return matvec32(M(x)).to(dt)
 
-        return gmres_correction(AM, M, r32, n_inner)
+        return gmres_correction(AM, M, r32, n_inner, stages=stages)
 
     return inner_solve

@@ -905,3 +905,129 @@ def test_cycle_graph_matches_eager_bit_for_bit(cuda, kind):
     assert g.capture_seconds > 0
     with pytest.raises(ValueError, match="differ from the captured call"):
         g(*(x[:-1] for x in inputs[0]))
+
+
+# -- the float64 programs dgtpu compiles, as CUDA graphs ---------------------
+
+def _full_route(kind):
+    """The assembled 4x4 hierarchy of one full-precision ``-m`` route on the
+    card: Poisson p2 ('poisson_<strategy>_<cycle>[_chebyshev]') or Stokes
+    p_u=2/p_p=1 ('stokes_<splitting>')."""
+    import chip_smoke
+    from dgtpu_torch.settings import Settings
+    if kind.startswith("stokes"):
+        params = chip_smoke.stokes_params(4)
+        params["performance"]["precision"] = "full"
+        params["performance"]["dgs_splitting"] = kind.split("_", 1)[1]
+        return chip_smoke.hierarchy(Settings(params))
+    s = chip_smoke.settings_for("Rectangle_4X4_nPoly2.xyz", 2, p_levels="1,2")
+    _, strategy, cycle, *smoother = kind.split("_")
+    s.performance.precision = "full"
+    s.performance.smoother_parallelization = strategy
+    s.solver.multigrid.cycle_type = cycle
+    for node in (s.solver.multigrid.polynomial_coarsening,
+                 s.solver.multigrid.geometric_coarsening):
+        for side in (node.pre_smoother, node.post_smoother):
+            if smoother:
+                side.smoother, side.iterations = smoother[0], 3
+    return chip_smoke.hierarchy(s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["poisson_sequential_V", "poisson_redblack_F",
+                                  "poisson_redblack_W_chebyshev", "stokes_lsq",
+                                  "stokes_lsq_dense", "stokes_classical_exact"])
+def test_multigrid_step_graph_matches_eager(cuda, kind):
+    """``MultigridSolver.step`` captured against its eager call on two
+    inputs, and the graphed ``solve()`` against the same loop run eagerly:
+    the same history, cycle count and solution, bit for bit."""
+    from dgtpu_torch.ops.graphs import CycleGraph
+    from dgtpu_torch.utils.norms import lp_norm
+    dg = _full_route(kind)
+    mg = dg._multigrid_solver()
+    rhs = dg.levels[-1].rhs
+    g = CycleGraph(mg.step, "mg.capture")
+    u1 = torch.as_tensor(np.random.default_rng(6).standard_normal(rhs.shape), device="cuda")
+    for u in (torch.zeros_like(rhs), u1):
+        got, ref = g(rhs, u), mg.step(rhs, u)
+        assert isinstance(got, tuple) and all(torch.equal(a, b) for a, b in zip(got, ref))
+    u, res, n, hist = mg.solve(rhs)
+    assert isinstance(mg.graph, CycleGraph) and mg.graph.capture_seconds > 0
+    res0 = float(lp_norm(rhs, 2))
+    ue, eager = torch.zeros_like(rhs), [1.0]
+    while len(eager) <= n:
+        ue, r = mg.step(rhs, ue)
+        eager.append(float(r) / res0)
+    assert hist == eager and torch.equal(u, ue) and res == hist[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["Poisson", "Stokes"])
+def test_krylov_preconditioner_graph_matches_eager(cuda, problem):
+    """The Krylov multigrid preconditioner is a CUDA graph on the card, equal
+    to the eager zero-guess cycle bit for bit; the route counts its capture."""
+    import chip_smoke
+    from dgtpu_torch.api import DGFEM
+    from dgtpu_torch.ops.graphs import CycleGraph
+    from dgtpu_torch.settings import Settings
+    if problem == "Stokes":
+        params = chip_smoke.stokes_params(4)
+        params["performance"]["precision"] = "full"
+        s = Settings(params)
+    else:
+        s = chip_smoke.settings_for("Rectangle_4X4_nPoly2.xyz", 2, p_levels="1,2")
+    s.solver.krylov.preconditioner = "multigrid"
+    s.solver.krylov.tolerance, s.solver.krylov.absolute_tolerance = 1e-10, 0.0
+    dg = DGFEM(device="cuda", settings=s, solve_krylov=True)
+    g = dg._krylov_mg_cycle()
+    assert isinstance(g, CycleGraph) and g.name == "krylov.capture"
+    rng = np.random.default_rng(7)
+    k = len(dg.mg.ops)
+    for _ in range(2):
+        r = torch.as_tensor(rng.standard_normal(dg.levels[-1].rhs.shape), device="cuda")
+        assert torch.equal(g(r), dg.mg.v_cycle(k, r, torch.zeros_like(r)))
+    dg.solve()
+    assert dg.graphed and dg.graph_seconds > 0 and dg.krylov_iterations > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("way", ["staged", "one"])
+def test_gmres_step_graph_matches_eager(cuda, way):
+    """The GMRES(16) correction step over the 4x4 Stokes SoA W-cycle and
+    matvec, against its eager call on two inputs bit for bit: as the mixed
+    route runs it ('staged': the cycle, the matvec and each of the 18
+    arithmetic stages a graph of its own) and captured whole ('one'); after
+    3 calls every launch counter is 3 x the eager step's."""
+    import chip_smoke
+    from dgtpu_torch.ops.graphs import CycleGraph
+    from dgtpu_torch.settings import Settings
+    from dgtpu_torch.solvers.refinement import gmres_step
+    dg = chip_smoke.hierarchy(Settings(chip_smoke.stokes_params(4)))
+    cycle = chip_smoke.stokes_cycle_of(dg)
+    matvec = cycle.build_matvec()
+    eager = gmres_step(matvec, cycle, 16)
+    graphs = []
+
+    def graph(fn, name="refine.capture"):
+        graphs.append(CycleGraph(fn, name))
+        return graphs[-1]
+
+    if way == "staged":
+        step = gmres_step(graph(matvec), graph(cycle), 16, graph=graph)
+    else:
+        step = graph(gmres_step(matvec, cycle, 16))
+    rng = np.random.default_rng(8)
+    inputs = [_rand(rng, dg.levels[-1].rhs.numel(), device="cuda") for _ in range(2)]
+    for r in inputs:
+        assert torch.equal(step(r), eager(r))
+    assert len(graphs) == (20 if way == "staged" else 1)
+    chip_smoke.reset_counts()
+    eager(inputs[0])
+    per_call = chip_smoke.counts()
+    assert sum(per_call.values()) > 0
+    chip_smoke.reset_counts()
+    for _ in range(3):
+        step(inputs[1])
+    torch.cuda.synchronize()
+    assert chip_smoke.counts() == {k: 3 * v for k, v in per_call.items()}
+    assert all(g.warmup_seconds > 0 and g.instantiate_seconds > 0 for g in graphs)
