@@ -158,13 +158,17 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
  26. the float64 programs dgtpu compiles, as CUDA graphs
      (``graph_program_phases``): ``MultigridSolver.step`` on ``-m`` in full
      precision (Poisson 8x8 p5 sequential and red-black V-cycles and
-     Chebyshev W-cycles, Stokes 8x8 DGS lsq and classical_exact), the Krylov
-     multigrid preconditioner (Stokes 8x8 ``-k``) and the 32x32 Stokes
-     mixed route's GMRES(16) correction step, each graph against its eager
-     run bit for bit on the same inputs, the graphed solve against the same
-     loop run eagerly (history, counts and solution), the counts against
-     dgtpu's, the L2 errors within L2_REL_TOL of dgtpu's, eager and graphed
-     seconds and the capture's split (warm-up, record, instantiate); the
+     Chebyshev W-cycles, Stokes 8x8 DGS lsq and classical_exact), dgtpu's
+     compiled loops as ``LoopGraph``s (``-k`` CG and GMRES on Poisson 8x8 p5
+     with the block-diagonal, AMG and multigrid preconditioners and on
+     Stokes 8x8 with the multigrid and Schur block-diagonal ones, ``-s``
+     block GS on 8x8 p2 and DGS on Stokes 8x8, ``-amg`` sa and rs) and the
+     32x32 Stokes mixed route's GMRES(16) correction step, each graph
+     against its eager run bit for bit on the same inputs, the graphed solve
+     against the same loop run eagerly (history, counts and solution), the
+     counts against dgtpu's, the L2 errors within L2_REL_TOL of dgtpu's,
+     eager and graphed seconds and the capture's split (warm-up, record,
+     instantiate), a loop's replays, run size and frozen replays; the
      GMRES step three ways (its cycle and matvec graphed alone, with its
      arithmetic stages graphed too as the route runs it, and captured whole),
      each with its round's time and its capture; the phase's wall time.
@@ -2496,7 +2500,41 @@ def bench_phase(card):
 # mg_cycle=dg._krylov_mg_cycle()) returns the solution of an unbounded
 # ``maxiter`` bit for bit
 DGTPU_GRAPH_COUNTS = {"poisson_chebyshev_W": 13, "stokes_lsq": 14,
-                      "stokes_classical_exact": 36, "stokes_krylov": 1}
+                      "stokes_classical_exact": 36}
+# dgtpu's counts for phase 26's loop cases, computed the same way on a CPU
+# with the JAX reference package, on the paramfiles phase 26 writes: the
+# restarts of GMRES and the steps of CG (``-k``; Poisson 8x8 p5 to
+# KRYLOV_TOL, Stokes 8x8 to RES_TOL) as the fewest ``maxiter`` with which
+# dgtpu.solvers.krylov.solve_krylov(dg.levels[-1], dg.settings, maxiter=k,
+# mg_cycle=dg._krylov_mg_cycle()) returns the solution of an unbounded
+# ``maxiter`` bit for bit (a CG capped short of it fails its audit); the
+# sweeps of ``-s`` as the n that dgtpu.solvers.relaxation_driver.
+# residual_tracked_smoother (block GS, symmetric, 1000 sweeps at most,
+# sequential, on 8x8 p2) and dgtpu.models.stokes.distributive_gauss_seidel_
+# solve (lsq, 1_000_000 sweeps at most) return on the route's finest level;
+# the cycles of ``-amg`` are DGTPU_AMG_8X8_P5's
+DGTPU_LOOP_COUNTS = {"poisson_gmres_block_diagonal": 3, "poisson_gmres_amg": 3,
+                     "poisson_gmres_multigrid": 1, "poisson_cg_multigrid": 10,
+                     "stokes_gmres_multigrid": 1, "stokes_gmres_block_diagonal": 20,
+                     "bgs_8x8_p2": 227, "stokes_dgs_lsq": 344, "amg_sa": 1000,
+                     "amg_rs": 907}
+# the counts that rounding decides, printed beside dgtpu's and not held to
+# it: the 8x8 Stokes GMRES(50) with the Schur block-diagonal preconditioner
+# takes 23 restarts in the port on a CPU and 20 in dgtpu, and both stop
+# inside the tolerance with dgtpu's L2 errors.  Their preconditioned
+# residual norms after each restart agree to 4-5 digits over the first
+# nine restarts and then part, since each restart solves its least-squares
+# problem through its normal equations (JAX's batched GMRES), which square
+# the condition of H
+ROUNDING_COUNTS = {"stokes_gmres_block_diagonal"}
+# dgtpu's L2 errors of the ``-s`` routes of phase 26, from dgtpu's DGFEM(
+# settings=P, solve_smoother=True, smoother=S).solve() on the same settings
+# (block GS on 8x8 p2, 227 sweeps; distributive GS on the 8x8 Stokes
+# flagship settings, 344 sweeps): both stop at the residual's 1e-6, far from
+# the discrete solution, so they are held to dgtpu's route, not to -d
+DGTPU_S_L2 = {"bgs_8x8_p2": 0.011706180358335077,
+              "stokes_dgs_lsq": {"u": 0.011376846427816556, "v": 0.01137648510374708,
+                                 "p": 0.04500891382242364}}
 # phase 26's Poisson W-cycle with Chebyshev smoothing (degree 3, the
 # interval [0.3 lmax, lmax] from each level's power iteration) on every
 # level, to RES_TOL: each package estimates lmax from its own start vector,
@@ -2524,24 +2562,32 @@ def graph_program_phases(card):
     on the card (``ops/graphs.CycleGraph``), each against its eager run:
     ``MultigridSolver.step`` on the ``-m`` routes in full precision (Poisson
     8x8 p5 sequential and red-black, a W-cycle with Chebyshev smoothing;
-    Stokes 8x8 with DGS lsq and classical_exact), the Krylov multigrid
-    preconditioner (Stokes 8x8 ``-k``), and the GMRES(16) correction step of
-    the 32x32 Stokes mixed route's retry.  Each case: the route through the
-    CLI (graphed: its counts against dgtpu's, its L2 errors within
-    L2_REL_TOL of dgtpu's); its graph replayed on two inputs against the
-    eager call; a second graphed solve against the same loop run eagerly
-    (history, counts and solution bit for bit), with the seconds of each and
-    the capture's split.  A difference is printed with its size and fails
-    the phase at its end.  The phase's wall time last."""
+    Stokes 8x8 with DGS lsq and classical_exact), dgtpu's compiled loops
+    (``ops/graphs.LoopGraph``: ``-k``, ``-s`` and ``-amg``, ``loop_case``),
+    and the GMRES(16) correction step of the 32x32 Stokes mixed route's
+    retry.  Each case: the route through the CLI (graphed: its counts
+    against dgtpu's, its L2 errors within L2_REL_TOL of dgtpu's); its graph
+    replayed on two inputs against the eager call (the steps); a second
+    graphed solve against the same loop run eagerly (history, counts and
+    solution bit for bit), with the seconds of each and the capture's split.
+    A difference is printed with its size and fails the phase at its end.
+    The phase's wall time last."""
+    from unittest import mock
+
     import numpy as np
     import torch
     import yaml
     from dgtpu_torch.__main__ import main as cli
     from dgtpu_torch.api import DGFEM
+    from dgtpu_torch.models.stokes import distributive_gauss_seidel_solve
+    from dgtpu_torch.ops import graphs
     from dgtpu_torch.ops.graphs import CycleGraph
+    from dgtpu_torch.ops.smoothers import element_colors
     from dgtpu_torch.settings import Settings
+    from dgtpu_torch.solvers.amg import solve_amg
     from dgtpu_torch.solvers.krylov import solve_krylov
     from dgtpu_torch.solvers.refinement import gmres_step
+    from dgtpu_torch.solvers.relaxation_driver import residual_tracked_smoother
     from dgtpu_torch.utils.norms import lp_norm
     t_phase = time.perf_counter()
     rng = np.random.default_rng(26)
@@ -2637,6 +2683,108 @@ def graph_program_phases(card):
               f"{peak_mb:.1f} MB at its peak above the start); {route} ({card})",
               flush=True)
 
+    def bits_of(x):
+        """``x``'s tensors, arrays and numbers (in tuples, lists and dicts) as
+        a flat list of integer tensors: float64 values by their bits, so
+        that NaN equals NaN."""
+        if isinstance(x, dict):
+            return [b for k in sorted(x) for b in bits_of(x[k])]
+        if isinstance(x, (tuple, list)) and not all(isinstance(v, float) for v in x):
+            return [b for v in x for b in bits_of(v)]
+        t = torch.as_tensor(x, dtype=torch.float64 if isinstance(x, (list, float)) else None)
+        t = t.detach().cpu()
+        return [t.view(torch.int64) if t.dtype == torch.float64 else t]
+
+    def same_bits(label, got, ref):
+        a, b = bits_of(got), bits_of(ref)
+        if len(a) == len(b) and all(x.shape == y.shape and torch.equal(x, y)
+                                    for x, y in zip(a, b)):
+            return "bit for bit"
+        failures.append(f"{label}: the graphed loop differs from the eager one")
+        return "NOT bit for bit"
+
+    def loop_case(label, dg, call, count_of, route, key, l2, vars_, unit, steps=None,
+                  runs=None):
+        """One loop of dgtpu's as the card runs it: ``call`` (the solver on
+        the route's finest level) with its loops as ``LoopGraph``s, then
+        with the same masked iterations run eagerly (``MaskedLoop``):
+        results bit for bit; the count against the route's (``route``:
+        (count, status), status 0 asked) and dgtpu's (DGTPU_LOOP_COUNTS
+        [key]; the keys of ROUNDING_COUNTS print it beside); the route's L2
+        errors within L2_REL_TOL of ``l2``; the seconds of both calls, the
+        capture's split, the replays in their runs and the frozen replays
+        after the stops (``steps(out)``: the active iterations, else the
+        count), with their share of the graphed call (``runs``: the run
+        sizes, if not the loop's last); the device memory held after two
+        more solves of the route."""
+        before = CycleGraph.replays
+        with graphs.collect() as loops:
+            got, graphed_s = timed(call)
+        replays = CycleGraph.replays - before
+        with mock.patch.object(graphs, "while_loop", graphs.MaskedLoop):
+            eager, eager_s = timed(call)
+        bits = same_bits(label, got, eager)
+        n = count_of(got)
+        if not (count_of(eager), route) == (n, (n, 0)):
+            failures.append(f"{label}: graphed {n}, eager {count_of(eager)}, the route "
+                            f"{route} (count, status)")
+        ref = DGTPU_LOOP_COUNTS[key]
+        rel = held(label, dg, n, None if key in ROUNDING_COUNTS else ref, l2, vars_)
+        capture = sum(g.capture_seconds for g in loops)
+        frozen = replays - (steps(got) if steps else n)
+        per_replay = (graphed_s - capture) / max(replays, 1)
+        memory = resident(label, dg, n=2)
+        print(f"[26] {label}: {n} {unit} (dgtpu {ref}"
+              f"{', a count rounding decides' if key in ROUNDING_COUNTS else ''}); "
+              f"graphed against the eager masked loop (iterate, count, history): {bits}; "
+              f"L2 rel to dgtpu {rel}; eager {eager_s:.3f} s, graphed {graphed_s:.3f} s "
+              f"({len(loops)} loop graph, {split(loops[0])}; {replays} replays in runs "
+              f"of {runs or loops[0].chunk}, {frozen} frozen after the stop: "
+              f"{frozen * per_replay / graphed_s:.2%} of the graphed call at "
+              f"{per_replay * 1e3:.3f} ms a replay with the reads); the route: solve "
+              f"{dg.solve_seconds:.3f} s + capture {dg.graph_seconds:.3f} s; {memory} "
+              f"({card})", flush=True)
+
+    def run_sizes(call, label):
+        """``call``'s loop at three run sizes, in turns (a, b, c, c, b, a):
+        runs of one replay (a read after each), the rule's (CHUNK_SECONDS)
+        and one run to the cap (on a loop that reaches its cap: no read and
+        no frozen replay): the results bit for bit, the seconds of each
+        (the solver's setup included, the same in all three)."""
+        sizes = {"runs of 1": 1e-9, "the rule's": graphs.CHUNK_SECONDS,
+                 "one run": 1e3}
+        seconds = {name: [] for name in sizes}
+        first, chunks = None, {}
+        for name in list(sizes) + list(sizes)[::-1]:
+            with mock.patch.object(graphs, "CHUNK_SECONDS", sizes[name]), \
+                    graphs.collect() as loops:
+                out, t = timed(call)
+            seconds[name].append(t)
+            chunks[name] = loops[0].chunk
+            first = first or out
+            same_bits(f"{label} at {name}", out, first)
+        print(f"[26] {label}, the run size: " + "; ".join(
+            f"{name} (run size {chunks[name]}): {', '.join(f'{t:.3f}' for t in ts)} s"
+            for name, ts in seconds.items()) + f"; bit for bit alike ({card})",
+            flush=True)
+
+    def krylov_case(label, dg, key, l2, vars_):
+        """``loop_case`` of the ``-k`` route's ``solve_krylov`` (the
+        multigrid preconditioner, if any, built once; GMRES's active steps
+        are ``restart`` per restart)."""
+        fin, mg_cycle = dg.levels[-1], dg._krylov_mg_cycle()
+        ks = dg.settings.solver.krylov
+        gmres = str(ks.method) == "gmres"
+        # CG's first residual and GMRES's residual steps (one a restart and
+        # one after the last) are iterations of their loops as well
+        loop_case(label, dg, lambda: solve_krylov(fin, dg.settings, mg_cycle=mg_cycle),
+                  lambda out: out[1], (dg.krylov_iterations, 0), key, l2, vars_,
+                  "restarts" if gmres else "steps",
+                  (lambda out: out[1] * (int(ks.restart) + 1) + 1) if gmres
+                  else (lambda out: out[1] + 1),
+                  f"1 (a residual step) and {ks.restart} (the Arnoldi steps)" if gmres
+                  else None)
+
     def stokes(n, **overrides):
         params = stokes_params(n)
         params["performance"]["precision"] = "full"
@@ -2675,38 +2823,56 @@ def graph_program_phases(card):
             multigrid_case(f"Stokes 8x8 -m full, DGS {splitting} W-cycles", dg,
                            DGTPU_GRAPH_COUNTS[f"stokes_{splitting}"],
                            DGTPU_STOKES_L2[8], "uvp")
-        # -- the Krylov multigrid preconditioner: Stokes 8x8 -k --------------
-        dg = run(tmp, "stokes_k", ["-k"], stokes(8, **{
-            "solver.krylov.preconditioner": "multigrid",
-            "solver.krylov.tolerance": RES_TOL,
-            "solver.krylov.absolute tolerance": 0.0}))
-        finest, k = dg.levels[-1], len(dg.mg.ops)
-
-        def cycle(r):
-            return dg.mg.v_cycle(k, r, torch.zeros_like(r))
-
-        g = CycleGraph(cycle, "krylov.capture")
-        bits = []
-        for _ in range(2):
-            r = torch.as_tensor(rng.standard_normal(finest.rhs.shape), device="cuda")
-            bits.append(same("Stokes -k preconditioner", (g(r),), (cycle(r),)))
-        g = CycleGraph(cycle, "krylov.capture")
-        (ug, kg), graphed_s = timed(lambda: solve_krylov(finest, dg.settings, mg_cycle=g))
-        (ue, ke), eager_s = timed(lambda: solve_krylov(finest, dg.settings,
-                                                       mg_cycle=cycle))
-        loop = same("Stokes -k solve", (ug,), (ue,))
-        if not dg.krylov_iterations == kg == ke:
-            failures.append(f"Stokes -k: route {dg.krylov_iterations}, graphed {kg}, "
-                            f"eager {ke} restarts")
-        rel = held("Stokes -k", dg, kg, DGTPU_GRAPH_COUNTS["stokes_krylov"],
-                   DGTPU_STOKES_L2[8], "uvp")
-        print(f"[26] Stokes 8x8 -k GMRES({dg.settings.solver.krylov.restart}) with the "
-              f"multigrid preconditioner (DGS lsq W-cycle): {kg} restarts (dgtpu "
-              f"{DGTPU_GRAPH_COUNTS['stokes_krylov']}); preconditioner graph against the eager cycle on 2 inputs: "
-              f"{', '.join(bits)}; graphed Krylov solve against the eager one (u): "
-              f"{loop}; L2 rel to dgtpu {rel}; eager {eager_s:.3f} s, graphed "
-              f"{graphed_s:.3f} s ({split(g)}); the route: solve {dg.solve_seconds:.3f} "
-              f"s + capture {dg.graph_seconds:.3f} s ({card})", flush=True)
+        # -- dgtpu's compiled loops: -k, -s and -amg ------------------------
+        sym = {f"solver.multigrid.{c}.post smoother.iterations": 2
+               for c in ("polynomial coarsening", "geometric coarsening")}
+        for method, precond in (("gmres", "block_diagonal"), ("gmres", "amg"),
+                                ("gmres", "multigrid"), ("cg", "multigrid")):
+            path = write_paramfile(tmp, f"loop_k_{method}_{precond}.yml", **{
+                "solver.krylov.method": method, "solver.krylov.preconditioner": precond,
+                "solver.krylov.tolerance": KRYLOV_TOL,
+                "solver.krylov.absolute tolerance": 0.0,
+                **(sym if method == "cg" else {})})
+            dg = cli(["-k", "--silent", "--device", "cuda", "--paramfile", path])
+            krylov_case(f"Poisson 8x8 p5 -k {method} with {precond}", dg,
+                        f"poisson_{method}_{precond}", {"u": DGTPU_L2_8X8_P5}, "u")
+        for precond in ("multigrid", "block_diagonal"):
+            dg = run(tmp, f"loop_stokes_k_{precond}", ["-k"], stokes(8, **{
+                "solver.krylov.preconditioner": precond,
+                "solver.krylov.tolerance": RES_TOL,
+                "solver.krylov.absolute tolerance": 0.0}))
+            krylov_case(f"Stokes 8x8 -k gmres with {precond}", dg,
+                        f"stokes_gmres_{precond}", DGTPU_STOKES_L2[8], "uvp")
+        dg = cli(["-s", "--smoother", "block_gauss_seidel", "--silent", "--device", "cuda",
+                  "-f", "Rectangle_8X8_nPoly2.xyz", "--p-grid", "2", "--p-solution", "2"])
+        fin = dg.levels[-1]
+        loop_case("-s block_gauss_seidel (sequential wavefronts), 8x8 p2", dg,
+                  lambda: residual_tracked_smoother(
+                      fin.op, fin.rhs, name="block_gauss_seidel", direction="symmetric",
+                      max_iterations=1000,
+                      strategy=dg.settings.performance.smoother_parallelization,
+                      colors=element_colors(fin.Ni, fin.Nj, fin.rhs.device)),
+                  lambda out: out[2], (dg.sweeps, dg.smoother_status),
+                  "bgs_8x8_p2", {"u": DGTPU_S_L2["bgs_8x8_p2"]}, "u", "sweeps")
+        dg = run(tmp, "loop_stokes_s", ["-s", "--smoother", "distributive_gauss_seidel"],
+                 stokes(8))
+        fin = dg.levels[-1]
+        loop_case("Stokes 8x8 -s distributive_gauss_seidel (lsq)", dg,
+                  lambda: distributive_gauss_seidel_solve(
+                      fin, fin.rhs, max_iterations=1_000_000, splitting="lsq"),
+                  lambda out: out[2], (dg.sweeps, dg.smoother_status),
+                  "stokes_dgs_lsq", DGTPU_S_L2["stokes_dgs_lsq"], "uvp", "sweeps")
+        for variant, (l2_ref, _) in DGTPU_AMG_8X8_P5.items():
+            path = write_paramfile(tmp, f"loop_amg_{variant}.yml",
+                                   **{"solver.amg.variant": variant})
+            dg = cli(["-amg", "--silent", "--device", "cuda", "--paramfile", path])
+            fin = dg.levels[-1]
+            loop_case(f"Poisson 8x8 p5 -amg {variant}", dg,
+                      lambda: solve_amg(fin.op, fin.rhs, variant=variant),
+                      lambda out: out[1]["cycles"], (dg.amg_info["cycles"], 0),
+                      f"amg_{variant}", {"u": l2_ref}, "u", "cycles")
+        run_sizes(lambda: solve_amg(fin.op, fin.rhs, variant="sa"),
+                  "Poisson 8x8 p5 -amg sa (1000 cycles, its cap)")
 
     # -- the GMRES(16) correction step: the 32x32 Stokes mixed route --------
     dg = DGFEM(device="cuda", settings=Settings(stokes_params(32)), solve_multigrid=True)

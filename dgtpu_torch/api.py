@@ -49,6 +49,7 @@ from dgtpu_torch.models.stokes import (StokesGeometricTransfer,
                                        distributive_gauss_seidel_solve,
                                        pressure_mean_shift,
                                        reorder_global_to_local)
+from dgtpu_torch.ops import graphs
 from dgtpu_torch.ops.graphs import CycleGraph
 from dgtpu_torch.ops.orthonormal import element_bases
 from dgtpu_torch.ops.smoothers import element_colors, normalize_smoother_name
@@ -366,13 +367,14 @@ class DGFEM:
             self.logger.warning(
                 "performance.n_shards only applies to the multigrid solver; "
                 f"running {method} single-device")
-        # the CUDA graphs this solve captures (``_graphed``): their capture
-        # seconds go to ``graph_seconds``, apart from ``solve_seconds``
+        # the CUDA graphs this solve captures (``_graphed``, and the solver
+        # loops' ``LoopGraph``s): their capture seconds go to
+        # ``graph_seconds``, apart from ``solve_seconds``
         self._graphs = []
         # the mixed route's last float32 cycle and its operand bytes; dropped
         # here so that two cycles never sit on the device at once
         self.cycle = self.cycle_bytes = None
-        with Timer() as t:
+        with Timer() as t, graphs.collect() as loops:
             if method in ("direct", "finite_volume_method"):
                 u_modal = solve_direct(finest.op, finest.rhs)
             elif method == "smoother_amplification":
@@ -410,6 +412,7 @@ class DGFEM:
                 raise NotImplementedError(method)
             with trace.span("solve.sync"):
                 synchronize(u_modal)
+        self._graphs += loops
         self.graphed = bool(self._graphs)
         self.graph_seconds = sum(g.capture_seconds for g in self._graphs)
         self._graphs = []
@@ -519,8 +522,9 @@ class DGFEM:
         application (dgtpu's ``_krylov_mg_cycle``, ``api.py:395-426``), or
         None unless ``solver.krylov.preconditioner: multigrid``.  A cycle
         from a zero guess is a fixed linear operator.  dgtpu jits it; on the
-        card it is a CUDA graph, captured at the Krylov solve's first
-        preconditioner application and replayed at every later one."""
+        card the Krylov step's graph (``graphs.LoopGraph``) captures it with
+        the step, so it is handed over as the function, not as a graph of
+        its own: graphs captured inside a capture are untried."""
         if not _wants_mg_precond(self.settings):
             return None
         if len(self.levels) < 2:
@@ -533,7 +537,7 @@ class DGFEM:
         def cycle(r):
             return self.mg.v_cycle(k, r, torch.zeros_like(r))
 
-        return self._graphed(cycle, "krylov.capture")
+        return cycle
 
     def _solve_smoother(self, finest):
         """The stand-alone smoother solve (``-s --smoother NAME``): symmetric

@@ -33,7 +33,7 @@ from dgtpu_torch.ops.linalg import host_inv
 from dgtpu_torch.ops.orthonormal import element_bases
 from dgtpu_torch.ops.stencil import StencilOperator, dense_block_gs_sweep
 from dgtpu_torch.ops.transfer import make_transfer, p_restriction
-from dgtpu_torch.solvers.relaxation_driver import tracked_status
+from dgtpu_torch.solvers.relaxation_driver import tracked_loop, tracked_status
 from dgtpu_torch.utils import caching
 from dgtpu_torch.utils.norms import lp_norm
 
@@ -692,22 +692,24 @@ def distributive_gauss_seidel_solve(level, rhs, u0=None, splitting="lsq",
 
     Returns ``(u, residual_history, n, status)`` with status 0 (converged),
     1 (max iterations) or 2 (diverged, a non-finite residual included), as
-    the relaxation driver.  A host loop with one residual read per sweep;
-    the history holds ``min(max_iterations, 20000)`` entries (numpy,
-    NaN-padded past the last sweep) as dgtpu's does.
+    the relaxation driver.  The sweeps run as its ``tracked_loop``, dgtpu's
+    ``while_loop``: one sweep, its residual and the history store are one
+    masked iteration (on the card a CUDA graph replayed in runs, one read of
+    the loop test per run).  The history holds ``min(max_iterations,
+    20000)`` entries (numpy, NaN-padded past the last sweep) as dgtpu's
+    does; it is a device buffer, read once at the end.
     """
     dgs = make_dgs(level, splitting)
     op = level.op
     u = torch.zeros_like(rhs) if u0 is None else u0
     max_iterations = int(min(max_iterations, 100000))
-    hist = np.full(min(max_iterations, 20000), np.nan)
-    res0 = float(lp_norm(rhs - op.matvec(u), 2))
-    res = float(lp_norm(rhs - op.matvec(u), 2)) / res0 if res0 else math.nan
-    n = 0
-    while n < max_iterations and tol <= res <= div_tol and math.isfinite(res):
-        u = dgs.sweep(rhs, u)
-        res = float(lp_norm(rhs - op.matvec(u), 2)) / res0
-        if n < hist.size:
-            hist[n] = res
-        n += 1
-    return u, hist, n, tracked_status(res, tol, div_tol)
+    res0 = lp_norm(rhs - op.matvec(u), 2)
+    state = (torch.zeros((), dtype=torch.int64, device=rhs.device), u.clone(),
+             res0 / res0,         # 1, or NaN where res0 is 0 (no sweep then)
+             torch.full((max(min(max_iterations, 20000), 1),), math.nan,
+                        dtype=rhs.dtype, device=rhs.device))
+    n, u, res, hist = tracked_loop(lambda u: dgs.sweep(rhs, u), op, rhs, res0, state,
+                                   max_iterations, tol, div_tol, "smoother.capture")
+    n, res = torch.stack([n.to(res.dtype), res]).tolist()
+    hist = hist.cpu().numpy()[:min(max_iterations, 20000)]
+    return u, hist, int(n), tracked_status(res, tol, div_tol)

@@ -5,11 +5,12 @@ Each float32 cycle of the mixed route (``SoAVCycle``, ``RolledVCycle``,
 Stokes ``build_matvec`` is a fixed sequence of kernel launches with no host
 synchronisation inside.  So are the float64 programs that dgtpu compiles
 and replays many times in one solve: ``MultigridSolver.step`` (a cycle and
-its residual norm, once per cycle of ``-m`` in full precision), the
-zero-guess cycle of the Krylov multigrid preconditioner, and the GMRES(16)
-correction step of the refinement (``solvers/refinement.gmres_step``).  Launched eagerly, every kernel pays the host's
-launch path (argument checks, ``torch.empty``, a ctypes call): 24-61 us
-against 1-90 us of device time, so the host sets the cycle's pace.  dgtpu
+its residual norm, once per cycle of ``-m`` in full precision) and the
+GMRES(16) correction step of the refinement
+(``solvers/refinement.gmres_step``).  Launched eagerly, every kernel pays
+the host's launch path (argument checks, ``torch.empty``, a ctypes call):
+24-61 us against 1-90 us of device time, so the host sets the cycle's
+pace.  dgtpu
 compiles its whole refined solve into one XLA program and pays no dispatch
 per phase; ``CycleGraph`` is the port's counterpart: the first call
 captures the step with ``torch.cuda.graph``, every later call replays it.
@@ -27,9 +28,26 @@ and replays over all graphs.
 
 No CPU mode and no fallback: CPU tensors raise, and a capture that fails
 raises; the caller never gets the eager cycle in its place.
+
+The loops that dgtpu compiles as ``jax.lax.while_loop`` (CG and restarted
+GMRES with their preconditioner, the Krylov multigrid cycle included, the
+residual-tracked smoothers, the AMG cycle loop) need more than a graph of
+one step: their loop test must stay on the device too.  ``while_loop`` / ``run_while`` are their counterpart.  One
+iteration is ``state = where(cond(state), body(state), state)`` written into
+the state's own tensors, and the loop test of the result into a flag: once
+the test is false the state is frozen, so iterations past the stop change
+nothing, bit for bit.  On the card (``LoopGraph``) the iteration is captured
+once and replayed in runs (``chunk``), and the host reads the flag once per
+run; on the CPU (``MaskedLoop``) the same iteration runs eagerly in the same
+runs.  PyTorch exposes CUDA's conditional graph nodes only as an if/else
+node for ``torch.cond`` inside its compiler's graph trees, with no while
+node, so the loop test is a mask and the frozen iterations after the stop
+are paid for.  As for ``CycleGraph``, CPU state raises and a failed
+capture raises.
 """
 
 import time
+from contextlib import contextmanager
 
 import torch
 
@@ -39,6 +57,44 @@ from dgtpu_torch.utils import trace
 
 # every kernel wrapper a cycle can launch (each keeps a ``launches`` count)
 COUNTED = ss.CYCLE_KERNELS + stream.KERNELS + vcycle.KERNELS
+# the host time one run of a loop's replays should take where the caller
+# leaves ``chunk`` to the loop (``MaskedLoop.run``)
+CHUNK_SECONDS = 1e-3
+# the open ``collect()`` lists, innermost last
+_collectors = []
+
+
+def _record(warm, record):
+    """Capture ``record()`` into a new CUDA graph after one eager ``warm()``
+    on the warm-up side stream; returns ``(graph, launches, (warm-up,
+    record, instantiate) seconds)``.  ``launches``: {kernel wrapper:
+    launches per replay}, taken back from the counters (captured, not
+    run)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device = torch.cuda.current_device()
+    if device not in CycleGraph._warmup_streams:
+        CycleGraph._warmup_streams[device] = torch.cuda.Stream()
+    side = CycleGraph._warmup_streams[device]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = {k: k.launches for k in COUNTED}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        record()
+        t2 = time.perf_counter()
+    launches = {k: k.launches - before[k] for k in COUNTED if k.launches != before[k]}
+    for kern, n in launches.items():
+        kern.launches -= n
+    CycleGraph.captures += 1
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    trace.count("graph.captures")
+    return graph, launches, (t1 - t0, t2 - t1, t3 - t2)
 
 
 class CycleGraph:
@@ -116,33 +172,142 @@ class CycleGraph:
         return self.static_out.clone()
 
     def _capture(self, inputs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         self.static_in = [x.clone() for x in inputs]
-        device = torch.cuda.current_device()
-        if device not in CycleGraph._warmup_streams:
-            CycleGraph._warmup_streams[device] = torch.cuda.Stream()
-        side = CycleGraph._warmup_streams[device]
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.fn(*self.static_in)
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        before = {k: k.launches for k in COUNTED}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+
+        def record():
             self.static_out = self.fn(*self.static_in)
-            t2 = time.perf_counter()
-        self.launches = {k: k.launches - before[k] for k in COUNTED
-                         if k.launches != before[k]}
-        for kern, n in self.launches.items():
-            kern.launches -= n                  # captured, not run
-        self.graph, self.fn = graph, None
-        CycleGraph.captures += 1
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        self.warmup_seconds, self.record_seconds = t1 - t0, t2 - t1
-        self.instantiate_seconds = t3 - t2
-        self.capture_seconds = t3 - t0
-        trace.count("graph.captures")
+
+        self.graph, self.launches, seconds = _record(
+            lambda: self.fn(*self.static_in), record)
+        self.fn = None
+        self.warmup_seconds, self.record_seconds, self.instantiate_seconds = seconds
+        self.capture_seconds = sum(seconds)
+
+
+class MaskedLoop:
+    """``jax.lax.while_loop(cond, body, state)`` as masked iterations, run
+    eagerly (the CPU's loop, and the card's eager reference).
+
+    ``state``: a tuple of fixed-shape tensors, the step counter first (a 0-d
+    int64 tensor); scalars are 0-d tensors, a history a preallocated buffer
+    written through tensor indices (``index_copy``), never through Python
+    ints read from the device.  ``cond(state)``: a 0-d bool tensor;
+    ``body(state)``: the next state as a new tuple (it must not write into
+    ``state``).  One iteration (``step``) writes ``where(flag, body(state),
+    state)`` into the state's tensors, then ``cond`` of the result into
+    ``flag``.  ``where`` returns ``body``'s values exactly where the flag
+    holds, NaN included, so every active iteration is the unmasked one; once
+    the flag is false the state is frozen and ``cond`` stays false, so an
+    iteration after the stop changes nothing.  ``name``: the span of a
+    capture (``LoopGraph``)."""
+
+    def __init__(self, cond, body, state, name="loop.capture"):
+        self.cond, self.body, self.name = cond, body, name
+        self.state = tuple(state)
+        self.flag = torch.ones((), dtype=torch.bool, device=self.state[0].device)
+
+    def step(self, state, flag):
+        """One masked iteration on ``state`` and ``flag``, in place."""
+        new = [torch.where(flag, v, s) for s, v in zip(state, self.body(state))]
+        for s, v in zip(state, new):
+            s.copy_(v)
+        flag.copy_(self.cond(state))
+
+    def _prepare(self):
+        """What the first run needs before its iterations (nothing here)."""
+
+    def _iterate(self, n):
+        for _ in range(n):
+            self.step(self.state, self.flag)
+
+    def run(self, max_steps, chunk=None):
+        """Iterate while ``cond`` holds, at most ``max_steps`` times;
+        returns the state, updated in place.
+
+        The iterations run in runs of ``chunk``, the last cut to
+        ``max_steps``, and the host reads the flag (one 0-d tensor) after
+        each run but the one that reaches ``max_steps``.  ``chunk=None``
+        chooses it from the measured time of the first run, one iteration:
+        ``chunk = CHUNK_SECONDS / t1``, so that a run of replays lasts about
+        a millisecond.  The read's round trip (a synchronisation, then the
+        launch of the next run: tens of microseconds) is then a few percent
+        of the run, and the frozen iterations after the stop cost less than
+        one run.  ``chunk`` holds the run size afterwards."""
+        self.flag.copy_(self.cond(self.state))
+        self._prepare()
+        self.chunk, done = chunk or 1, 0
+        while done < max_steps:
+            n = min(self.chunk, max_steps - done)
+            t0 = time.perf_counter()
+            self._iterate(n)
+            done += n
+            if done == max_steps or not self.flag.tolist():
+                break
+            if chunk is None and done == n:
+                self.chunk = max(1, int(CHUNK_SECONDS / (time.perf_counter() - t0)))
+        return self.state
+
+
+class LoopGraph(MaskedLoop):
+    """``MaskedLoop`` on the card: its iteration is captured once as a CUDA
+    graph on the state's own tensors (no input copies, no output clones)
+    and replayed ``chunk`` times back to back between two reads of the
+    flag.  The capture warms up on clones of the state, so it advances
+    nothing, and records the iteration on the state itself at the first
+    ``run``; later runs (GMRES's restarts, after resetting the state in
+    place) replay the same graph.  Its seconds and counters are
+    ``CycleGraph``'s, and ``collect()`` lists it.  CUDA state only, and a
+    capture that fails raises: no eager fallback."""
+
+    def __init__(self, cond, body, state, name="loop.capture"):
+        for x in state:
+            if not (isinstance(x, torch.Tensor) and x.is_cuda):
+                raise ValueError("LoopGraph replays CUDA work: its state must be CUDA "
+                                 "tensors (run MaskedLoop on the CPU)")
+        super().__init__(cond, body, state, name)
+        self.graph = None
+        self.launches = {}
+        self.capture_seconds = 0.0
+        self.warmup_seconds = self.record_seconds = self.instantiate_seconds = 0.0
+        for got in _collectors:
+            got.append(self)
+
+    def _prepare(self):
+        if self.graph is not None:
+            return
+        with trace.span(self.name):
+            warm = (tuple(s.clone() for s in self.state), self.flag.clone())
+            self.graph, self.launches, seconds = _record(
+                lambda: self.step(*warm), lambda: self.step(self.state, self.flag))
+        self.warmup_seconds, self.record_seconds, self.instantiate_seconds = seconds
+        self.capture_seconds = sum(seconds)
+
+    def _iterate(self, n):
+        for _ in range(n):
+            self.graph.replay()
+        for kern, k in self.launches.items():
+            kern.launches += k * n
+        CycleGraph.replays += n
+        trace.count("graph.replays", n)
+
+
+def while_loop(cond, body, state, name="loop.capture"):
+    """A ``LoopGraph`` of CUDA state, a ``MaskedLoop`` of CPU state."""
+    return (LoopGraph if state[0].is_cuda else MaskedLoop)(cond, body, state, name)
+
+
+def run_while(cond, body, state, *, max_steps, chunk=None, name="loop.capture"):
+    """``while_loop(cond, body, state, name).run(max_steps, chunk)``."""
+    return while_loop(cond, body, state, name).run(max_steps, chunk)
+
+
+@contextmanager
+def collect():
+    """``with collect() as loops:`` lists in ``loops`` every ``LoopGraph``
+    made inside (the solve counts their captures in ``graph_seconds``)."""
+    got = []
+    _collectors.append(got)
+    try:
+        yield got
+    finally:
+        _collectors.remove(got)

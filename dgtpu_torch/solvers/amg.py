@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from dgtpu_torch.ops import graphs
 from dgtpu_torch.ops.smoothers import block_diag_inv
 from dgtpu_torch.ops.stencil import as_dense_operator
 
@@ -261,24 +262,29 @@ def build_sa_cycle(op, variant="sa"):
             x = x + (omega / rho_blk) * torch.einsum("nij,nj->ni", Dblk, r).reshape(-1)
         return x
 
-    def v_cycle(lvl, b, x):
-        if lvl == len(dev):
-            return A_coarse_inv @ b
-        Al, P, Dinv, rho = dev[lvl]
+    def smooth(lvl, b, x):
+        Al, _, Dinv, rho = dev[lvl]
         if lvl == 0 and Dblk is not None:
-            def smooth(b_, x_):
-                return block_jacobi(Al, b_, x_)
-        else:
-            def smooth(b_, x_):
-                return jacobi(Al, Dinv, b_, x_, rho)
-        x = smooth(b, x)
-        r = b - Al @ x
-        e = v_cycle(lvl + 1, P.T @ r, torch.zeros(P.shape[1], dtype=b.dtype,
-                                                  device=b.device))
-        x = x + P @ e
-        return smooth(b, x)
+            return block_jacobi(Al, b, x)
+        return jacobi(Al, Dinv, b, x, rho)
 
-    return (lambda b, x: v_cycle(0, b, x)), A
+    def v_cycle(b, x):
+        # down the levels and back up in two loops: a function that recurses
+        # through its own closure sits in a reference cycle, which would keep
+        # the levels' device matrices until the garbage collector runs
+        down = []
+        for lvl, (Al, P, _, _) in enumerate(dev):
+            x = smooth(lvl, b, x)
+            down.append((b, x))
+            b, x = P.T @ (b - Al @ x), torch.zeros(P.shape[1], dtype=b.dtype,
+                                                   device=b.device)
+        e = A_coarse_inv @ b
+        for lvl in reversed(range(len(dev))):
+            b, x = down[lvl]
+            e = smooth(lvl, b, x + dev[lvl][1] @ e)
+        return e
+
+    return v_cycle, A
 
 
 def solve_amg(op, rhs, tol=1e-6, maxiter=1000, variant="sa"):
@@ -287,7 +293,11 @@ def solve_amg(op, rhs, tol=1e-6, maxiter=1000, variant="sa"):
     Returns ``(u, info)``: ``info["residuals"]`` is the normalized residual
     before each cycle (the first is 1, as dgtpu's), ``info["info"]`` 0
     when the tolerance was met, else 1; ``info["cycles"]`` counts the cycles.
-    A host loop with one residual read per cycle.
+    The cycles run as dgtpu's ``while_loop`` (``ops/graphs.run_while``): one
+    cycle, its residual and the history store are one masked iteration (on
+    the card a CUDA graph replayed in runs, one read of the loop test per
+    run); the history, ``maxiter + 1`` entries NaN-padded, is read once at
+    the end.
     """
     cycle, A = build_sa_cycle(op, variant=variant)
     res = _try_pyamg(A, rhs, tol, maxiter)
@@ -295,14 +305,22 @@ def solve_amg(op, rhs, tol=1e-6, maxiter=1000, variant="sa"):
         return res
     A_dev = torch.as_tensor(A, device=rhs.device)
     res0 = torch.linalg.norm(rhs)
-    x = torch.zeros_like(rhs)
-    r = 1.0
-    hist = []
-    n = 0
-    while n < maxiter and r >= tol and math.isfinite(r):
-        hist.append(r)
+
+    def cond(state):
+        n, _, r, _ = state
+        return (n < maxiter) & (r >= tol) & torch.isfinite(r)
+
+    def body(state):
+        n, x, r, hist = state
+        hist = hist.index_copy(0, torch.clamp(n, max=maxiter).view(1), r.view(1))
         x = cycle(rhs, x)
-        r = float(torch.linalg.norm(rhs - A_dev @ x) / res0)
-        n += 1
-    return x, {"residuals": [v for v in hist if math.isfinite(v)],
-               "info": 0 if r < tol else 1, "cycles": n}
+        return n + 1, x, torch.linalg.norm(rhs - A_dev @ x) / res0, hist
+
+    state = (torch.zeros((), dtype=torch.int64, device=rhs.device), torch.zeros_like(rhs),
+             torch.ones((), dtype=rhs.dtype, device=rhs.device),
+             torch.full((maxiter + 1,), math.nan, dtype=rhs.dtype, device=rhs.device))
+    n, x, r, hist = graphs.run_while(cond, body, state, max_steps=maxiter,
+                                     name="amg.capture")
+    n, r = torch.stack([n.to(r.dtype), r]).tolist()
+    return x, {"residuals": [v for v in hist.tolist() if math.isfinite(v)],
+               "info": 0 if r < tol else 1, "cycles": int(n)}

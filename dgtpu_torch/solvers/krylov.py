@@ -13,10 +13,14 @@ re-derives it, and this module follows dgtpu:
   approximating the (negative) pressure Schur complement, or with one
   multigrid cycle.
 
-dgtpu calls ``jax.scipy.sparse.linalg.cg`` and ``gmres``; ``cg`` and
-``gmres`` here are those two solvers written in torch with JAX's semantics
-(float64 plain torch on the operator's device, a host read of the stopping
-test per iteration, or per restart for GMRES):
+dgtpu calls ``jax.scipy.sparse.linalg.cg`` and ``gmres``, each compiled
+whole with its loop test on the device; ``cg`` and ``gmres`` here are those
+two solvers written in torch with JAX's semantics, float64 plain torch on
+the operator's device, their steps run as ``ops/graphs.while_loop``: a CG
+step, a GMRES Arnoldi step or residual step, its preconditioner included,
+is one masked iteration, on the card a CUDA graph replayed in runs with one
+read of the loop test per run.  GMRES reads its residual norm and Cholesky
+``info`` once per restart:
 
 * ``cg`` uses SciPy's "non-legacy" tolerance: it stops when r.r falls to
   max(tol^2 b.b, atol^2);
@@ -42,6 +46,7 @@ import math
 import numpy as np
 import torch
 
+from dgtpu_torch.ops import graphs
 from dgtpu_torch.ops.smoothers import block_diag_inv, normalize_smoother_name
 from dgtpu_torch.solvers.amg import build_sa_cycle
 from dgtpu_torch.utils.logger import Logger
@@ -60,70 +65,127 @@ def _safe_normalize(x, thresh=None):
 
 def cg(A, b, x0=None, *, tol=1e-5, atol=0.0, maxiter=None, M=None):
     """Preconditioned conjugate gradients with JAX's semantics; returns
-    ``(x, k)`` with k the number of CG steps taken."""
+    ``(x, k)`` with k the number of CG steps taken.  The steps run as
+    ``graphs.run_while`` on the state ``(k, x, r, p, gamma)``: step -1 forms
+    ``r = b - A x``, ``p = z = M(r)`` and ``gamma = r.z``, each later step is
+    one CG step.  Both are one iteration, one matvec and one preconditioner
+    application (on the card a replayed CUDA graph)."""
     x = torch.zeros_like(b) if x0 is None else x0
     if maxiter is None:
         maxiter = 10 * b.numel()
     atol2 = max(tol ** 2 * float(torch.dot(b, b)), atol ** 2)
-    r = b - A(x)
-    z = r if M is None else M(r)
-    p = z
-    gamma = torch.dot(r, z)
-    k = 0
-    while k < maxiter:
+
+    def cond(state):
+        k, x, r, p, gamma = state
         rs = gamma if M is None else torch.dot(r, r)
-        if not float(rs) > atol2:
-            break
-        Ap = A(p)
+        return (k < 0) | ((k < maxiter) & (rs > atol2))
+
+    def body(state):
+        k, x, r, p, gamma = state
+        first = k < 0
+        Ap = A(torch.where(first, x, p))
         alpha = gamma / torch.dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        r = torch.where(first, b - Ap, r - alpha * Ap)
         z = r if M is None else M(r)
         gamma_new = torch.dot(r, z)
-        p = z + (gamma_new / gamma) * p
-        gamma = gamma_new
-        k += 1
-    return x, k
+        return (k + 1, torch.where(first, x, x + alpha * p), r,
+                torch.where(first, z, z + (gamma_new / gamma) * p), gamma_new)
+
+    # the loop writes into its state: none of it may be the caller's x0
+    state = (torch.full((), -1, dtype=torch.int64, device=b.device), x.clone(),
+             torch.zeros_like(b), torch.zeros_like(b),
+             torch.zeros((), dtype=b.dtype, device=b.device))
+    k, x, *_ = graphs.run_while(cond, body, state, max_steps=maxiter + 1,
+                                name="krylov.capture")
+    return x, int(k)
 
 
-def _gmres_batched(A, M, b, x0, unit_residual, residual_norm, restart):
-    """One GMRES restart, JAX's ``_gmres_batched``: the full Arnoldi basis
-    (ending early only on breakdown) and the least-squares problem
-    ``min ||H^T y - beta e_0||`` by Cholesky of its normal equations.
-    Returns the new iterate, the unit preconditioned residual, its norm and
-    the Cholesky's ``info`` (0, or the pivot where H H^T stopped being
-    positive definite: the iterate is then NaN, as JAX's)."""
-    n = b.numel()
-    V = torch.zeros((n, restart + 1), dtype=b.dtype, device=b.device)
-    V[:, 0] = unit_residual
-    H = torch.eye(restart, restart + 1, dtype=b.dtype, device=b.device)
-    eps = torch.finfo(b.dtype).eps
-    for k in range(restart):
-        v = M(A(V[:, k]))
-        _, v_norm_0 = _safe_normalize(v)
-        # one classical Gram-Schmidt pass: JAX's iterative version with
-        # max_iterations=2 never takes its second
+def _arnoldi(A, M, b, restart):
+    """The steps of GMRES's restarts as one ``graphs.while_loop`` on the
+    state ``(k, V, H, v_norm_1, x, beta)``, of fixed shapes ``V (n, restart
+    + 1)`` and ``H (restart, restart + 1)``.  A restart starts at k = -1,
+    its residual step: ``M(b - A x)``, normalized into ``V[:, 0]`` and its
+    norm ``beta``.  Step k >= 0 preconditions ``A V[:, k]``, takes one
+    classical Gram-Schmidt pass (JAX's iterative version with
+    max_iterations=2 never takes its second) and stores ``V[:, k + 1]`` and
+    ``H[k]``; the steps stop after step ``restart - 1`` or after a breakdown
+    (``v_norm_1 == 0``, which the breaking step still stores, as JAX's).
+    Both kinds of step are one iteration, one matvec and one preconditioner
+    application: on the card every preconditioner application of the solve
+    replays in the one graph.  ``_residual_step`` resets the state in place
+    for each restart."""
+    n, dtype, device = b.numel(), b.dtype, b.device
+    eps = torch.finfo(dtype).eps
+
+    def cond(state):
+        k, _, _, v_norm, _, _ = state
+        return (k < 0) | ((k < restart) & (v_norm != 0))
+
+    def body(state):
+        k, V, H, v_norm, x, beta = state
+        first = k < 0
+        # an active Arnoldi step has 0 <= k < restart; the clamp keeps the
+        # indices of the residual step and of a frozen step in range
+        kk = torch.clamp(k, 0, restart - 1).view(1)
+        Av = A(torch.where(first, x, V.index_select(1, kk)[:, 0]))
+        v = M(torch.where(first, b - Av, Av))
+        unit_r, v_norm_0 = _safe_normalize(v)
         h = V.T @ v
-        v = v - V @ h
-        unit_v, v_norm_1 = _safe_normalize(v, thresh=eps * v_norm_0)
-        V[:, k + 1] = unit_v
-        h[k + 1] = v_norm_1
-        H[k] = h
-        if float(v_norm_1) == 0.0:
-            break
-    beta_vec = torch.zeros(restart + 1, dtype=b.dtype, device=b.device)
-    beta_vec[0] = residual_norm
+        unit_v, v_norm_1 = _safe_normalize(v - V @ h, thresh=eps * v_norm_0)
+        h = h.index_copy(0, kk + 1, v_norm_1.view(1))
+        return (k + 1,
+                torch.where(first, torch.cat([unit_r[:, None], V[:, 1:]], dim=1),
+                            V.index_copy(1, kk + 1, unit_v[:, None])),
+                torch.where(first, H, H.index_copy(0, kk, h[None])),
+                torch.where(first, v_norm, v_norm_1), x,
+                torch.where(first, v_norm_0, beta))
+
+    state = (torch.zeros((), dtype=torch.int64, device=device),
+             torch.zeros((n, restart + 1), dtype=dtype, device=device),
+             torch.zeros((restart, restart + 1), dtype=dtype, device=device),
+             torch.zeros((), dtype=dtype, device=device),
+             torch.zeros((n,), dtype=dtype, device=device),
+             torch.zeros((), dtype=dtype, device=device))
+    return graphs.while_loop(cond, body, state, name="krylov.capture")
+
+
+def _residual_step(arnoldi, x, info):
+    """Reset ``arnoldi``'s state for a restart from ``x`` and run its
+    residual step (``M(b - A x)``); returns the residual norm and the
+    previous restart's Cholesky ``info`` as floats, in one read."""
+    k, V, H, v_norm, x0, beta = arnoldi.state
+    k.fill_(-1)
+    V.zero_()
+    H.copy_(torch.eye(*H.shape, dtype=H.dtype, device=H.device))
+    v_norm.fill_(1.0)
+    x0.copy_(x)
+    arnoldi.run(1)
+    return torch.stack([beta, info.to(beta.dtype)]).tolist()
+
+
+def _gmres_batched(arnoldi, restart):
+    """One GMRES restart after its residual step, JAX's ``_gmres_batched``:
+    the full Arnoldi basis (ending early only on breakdown) and the
+    least-squares problem ``min ||H^T y - beta e_0||`` by Cholesky of its
+    normal equations.  Returns the new iterate and the Cholesky's ``info``
+    (0, or the pivot where H H^T stopped being positive definite: the
+    iterate is then NaN, as JAX's).  The steps replay as one run with no
+    read; the least-squares tail runs eagerly (no capture meets the linear
+    algebra library's Cholesky)."""
+    _, V, H, _, x0, beta = arnoldi.state
+    arnoldi.run(restart, chunk=restart)
+    beta_vec = torch.zeros(restart + 1, dtype=beta.dtype, device=beta.device)
+    beta_vec[0] = beta
     L, info = torch.linalg.cholesky_ex(H @ H.T)
     y = torch.cholesky_solve((H @ beta_vec)[:, None], L)[:, 0]
-    x = x0 + V[:, :-1] @ y
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
-    return x, unit_residual, residual_norm, info
+    return x0 + V[:, :-1] @ y, info
 
 
 def gmres(A, b, x0=None, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None):
     """Restarted, left-preconditioned GMRES with JAX's semantics
     (``solve_method='batched'``); returns ``(x, k)`` with k the number of
-    restarts taken."""
+    restarts taken.  The host reads the residual norm and the Cholesky's
+    ``info`` in one read per restart."""
     x = torch.zeros_like(b) if x0 is None else x0
     if M is None:
         def M(v):
@@ -133,17 +195,18 @@ def gmres(A, b, x0=None, *, tol=1e-5, atol=0.0, restart=20, maxiter=None, M=None
         maxiter = 10 * size
     restart = min(restart, size)
     atol = max(tol * float(torch.sqrt(torch.dot(b, b))), atol)
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    arnoldi = _arnoldi(A, M, b, restart)
+    norm, _ = _residual_step(arnoldi, x, torch.zeros((), device=b.device))
     k = 0
-    while k < maxiter and float(residual_norm) > atol:
-        x, unit_residual, residual_norm, info = _gmres_batched(
-            A, M, b, x, unit_residual, residual_norm, restart)
+    while k < maxiter and norm > atol:
+        x, info = _gmres_batched(arnoldi, restart)
         k += 1
-        if int(info):
+        norm, pivot = _residual_step(arnoldi, x, info)
+        if pivot:
             logging.getLogger(__name__).warning(
                 f"GMRES restart {k}: the normal equations of its least-squares "
                 f"problem are not positive definite (Cholesky stops at pivot "
-                f"{int(info)}), so the iterate is NaN, as JAX's batched GMRES's")
+                f"{int(pivot)}), so the iterate is NaN, as JAX's batched GMRES's")
     return x, k
 
 

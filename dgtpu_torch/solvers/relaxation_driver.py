@@ -4,8 +4,11 @@ guard (port of ``dgtpu/solvers/relaxation_driver.py``).
 Reference: ``Solver.solve_smoother`` (solver.py:61-66) and the
 residual-tracked ``block_gauss_seidel_pyamg`` loop (relaxation.py:197-218):
 sweep until the normalized residual drops below 1e-6, diverges above 1e10,
-or ``max_iterations`` is reached.  A host loop; divergence returns a status
-code instead of ``exit()``.
+or ``max_iterations`` is reached.  The loop is dgtpu's ``while_loop`` as
+``ops/graphs.run_while``: one sweep, its residual and the history store are
+one masked iteration (on the card a CUDA graph replayed in runs, with one
+read of the loop test per run); the history is a device buffer read once at
+the end.  Divergence returns a status code instead of ``exit()``.
 
 Status codes: 0 = converged, 1 = max iterations, 2 = diverged.
 """
@@ -44,19 +47,50 @@ def residual_tracked_smoother(op, rhs, u0=None, name="block_gauss_seidel",
     u = torch.zeros_like(rhs) if u0 is None else u0
     Dinv, eig_max, fronts, is_cheby = _setup(op, name, strategy, Dinv)
     max_iterations = int(max_iterations)
-    res0 = float(lp_norm(rhs - op.matvec(u), 2))
-    res = 1.0
-    history = []
-    n = 0
-    while n < max_iterations and tol <= res <= div_tol and math.isfinite(res):
-        u = apply_smoother(name, op, rhs, u, direction=direction, omega=omega,
-                           iterations=int(degree) if is_cheby else 1, Dinv=Dinv,
-                           strategy=strategy, colors=colors, eig_max=eig_max,
-                           fronts=fronts)
-        res = float(lp_norm(rhs - op.matvec(u), 2)) / res0
-        history.append(res)
-        n += 1
-    return u, history, n, tracked_status(res, tol, div_tol)
+    res0 = lp_norm(rhs - op.matvec(u), 2)
+
+    def sweep(u):
+        return apply_smoother(name, op, rhs, u, direction=direction, omega=omega,
+                              iterations=int(degree) if is_cheby else 1, Dinv=Dinv,
+                              strategy=strategy, colors=colors, eig_max=eig_max,
+                              fronts=fronts)
+
+    state = (torch.zeros((), dtype=torch.int64, device=rhs.device), u.clone(),
+             torch.ones((), dtype=rhs.dtype, device=rhs.device),
+             torch.full((max(max_iterations, 1),), math.nan, dtype=rhs.dtype,
+                        device=rhs.device))
+    n, u, res, hist = tracked_loop(sweep, op, rhs, res0, state, max_iterations,
+                                   tol, div_tol, "smoother.capture")
+    n, res = torch.stack([n.to(res.dtype), res]).tolist()
+    return u, hist[:int(n)].tolist(), int(n), tracked_status(res, tol, div_tol)
+
+
+def tracked_loop(sweep, op, rhs, res0, state, max_iterations, tol, div_tol, name):
+    """dgtpu's tracked ``while_loop`` on ``state = (n, u, res, hist)``:
+    while ``(n < max_iterations) & (tol <= res <= div_tol) & isfinite(res)``,
+    ``u = sweep(u)``, ``res = ||rhs - A u|| / res0`` (a float64 division on
+    the device) and ``hist[n] = res`` where n is inside the buffer; returns
+    the final state."""
+    # imported here: graphs imports the Stokes cycles, whose module imports
+    # this one
+    from dgtpu_torch.ops import graphs
+    size = state[3].numel()
+
+    def cond(state):
+        n, _, res, _ = state
+        return ((n < max_iterations) & (res >= tol) & (res <= div_tol)
+                & torch.isfinite(res))
+
+    def body(state):
+        n, u, res, hist = state
+        u = sweep(u)
+        res = lp_norm(rhs - op.matvec(u), 2) / res0
+        at = torch.clamp(n, max=size - 1).view(1)
+        keep = hist.index_select(0, at)
+        hist = hist.index_copy(0, at, torch.where(n < size, res.view(1), keep))
+        return n + 1, u, res, hist
+
+    return graphs.run_while(cond, body, state, max_steps=max_iterations, name=name)
 
 
 def tracked_status(res, tol, div_tol):

@@ -964,12 +964,18 @@ def test_multigrid_step_graph_matches_eager(cuda, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("problem", ["Poisson", "Stokes"])
 def test_krylov_preconditioner_graph_matches_eager(cuda, problem):
-    """The Krylov multigrid preconditioner is a CUDA graph on the card, equal
-    to the eager zero-guess cycle bit for bit; the route counts its capture."""
+    """The Krylov multigrid preconditioner runs inside the Krylov step's
+    CUDA graph on the card (``graphs.LoopGraph``, ``krylov.capture``): the
+    route hands the zero-guess cycle over as a function, the graphed solve
+    equals the same masked loop run eagerly bit for bit (iterate and
+    restarts), and the route counts the capture."""
+    from unittest import mock
+
     import chip_smoke
     from dgtpu_torch.api import DGFEM
-    from dgtpu_torch.ops.graphs import CycleGraph
+    from dgtpu_torch.ops import graphs
     from dgtpu_torch.settings import Settings
+    from dgtpu_torch.solvers.krylov import solve_krylov
     if problem == "Stokes":
         params = chip_smoke.stokes_params(4)
         params["performance"]["precision"] = "full"
@@ -979,15 +985,70 @@ def test_krylov_preconditioner_graph_matches_eager(cuda, problem):
     s.solver.krylov.preconditioner = "multigrid"
     s.solver.krylov.tolerance, s.solver.krylov.absolute_tolerance = 1e-10, 0.0
     dg = DGFEM(device="cuda", settings=s, solve_krylov=True)
-    g = dg._krylov_mg_cycle()
-    assert isinstance(g, CycleGraph) and g.name == "krylov.capture"
-    rng = np.random.default_rng(7)
-    k = len(dg.mg.ops)
-    for _ in range(2):
-        r = torch.as_tensor(rng.standard_normal(dg.levels[-1].rhs.shape), device="cuda")
-        assert torch.equal(g(r), dg.mg.v_cycle(k, r, torch.zeros_like(r)))
+    cycle = dg._krylov_mg_cycle()
+    assert not isinstance(cycle, graphs.CycleGraph)
+    r = dg.levels[-1].rhs
+    assert torch.equal(cycle(r), dg.mg.v_cycle(len(dg.mg.ops), r, torch.zeros_like(r)))
+    with graphs.collect() as loops:
+        u, k = solve_krylov(dg.levels[-1], dg.settings, mg_cycle=cycle)
+    assert len(loops) == 1 and loops[0].name == "krylov.capture"
+    assert loops[0].capture_seconds > 0
+    with mock.patch.object(graphs, "while_loop", graphs.MaskedLoop):
+        ue, ke = solve_krylov(dg.levels[-1], dg.settings, mg_cycle=cycle)
+    assert k == ke > 0 and torch.equal(u, ue)
     dg.solve()
-    assert dg.graphed and dg.graph_seconds > 0 and dg.krylov_iterations > 0
+    assert dg.graphed and dg.graph_seconds > 0 and dg.krylov_iterations == k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["cg", "gmres", "smoother", "dgs", "amg"])
+def test_loop_graph_matches_eager(cuda, loop):
+    """Each of dgtpu's compiled loops as a ``LoopGraph`` (its iteration
+    captured once, replayed in runs) on a 4x4 level of the card, against the
+    same masked loop run eagerly: iterate, count and history bit for bit,
+    one capture, a replay per iteration at least."""
+    from unittest import mock
+
+    import chip_smoke
+    from dgtpu_torch.models.stokes import distributive_gauss_seidel_solve
+    from dgtpu_torch.ops import graphs
+    from dgtpu_torch.settings import Settings
+    from dgtpu_torch.solvers import amg, krylov
+    from dgtpu_torch.solvers.relaxation_driver import residual_tracked_smoother
+    if loop == "dgs":
+        params = chip_smoke.stokes_params(4)
+        params["performance"]["precision"] = "full"
+        fin = chip_smoke.hierarchy(Settings(params)).levels[-1]
+    else:
+        fin = chip_smoke.hierarchy(chip_smoke.settings_for(
+            "Rectangle_4X4_nPoly2.xyz", 2, p_levels="1,2")).levels[-1]
+    op, rhs = fin.op, fin.rhs
+    runs = {"cg": lambda: krylov.cg(op.matvec, rhs, tol=1e-12),
+            "gmres": lambda: krylov.gmres(op.matvec, rhs, tol=1e-8, restart=20,
+                                          maxiter=50),
+            "smoother": lambda: residual_tracked_smoother(op, rhs, max_iterations=300),
+            "dgs": lambda: distributive_gauss_seidel_solve(fin, rhs, max_iterations=300),
+            "amg": lambda: amg.solve_amg(op, rhs)}
+    before = graphs.CycleGraph.replays
+    with graphs.collect() as loops:
+        got = runs[loop]()
+    assert len(loops) == 1 and loops[0].capture_seconds > 0
+    with mock.patch.object(graphs, "while_loop", graphs.MaskedLoop):
+        ref = runs[loop]()
+
+    def flat(x):
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in flat(x[k])]
+        if isinstance(x, tuple):
+            return [v for y in x for v in flat(y)]
+        if isinstance(x, torch.Tensor):
+            x = x.cpu()
+        return [torch.as_tensor(np.asarray(x, dtype=np.float64)).view(torch.int64)]
+
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(ref)))
+    count = got[1]["cycles"] if loop == "amg" else got[1] if loop in ("cg", "gmres") \
+        else got[2]
+    assert count > 0 and graphs.CycleGraph.replays - before >= count
 
 
 @pytest.mark.cuda
