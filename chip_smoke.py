@@ -136,15 +136,19 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
      caching on (the second loads every level; the same L2(u) bit for bit;
      both setup times); the host C++ kernels (``dgtpu_torch/native``) against
      the plain torch ones at 8x8 p5; the phase's wall time;
- 24. the sharded multigrid and the tools (``sharded_and_tools_phases``):
-     the 64x64 p5 mixed route over 4 shards on the card (phase 6's
-     hierarchy and FMG seed; held to phase 6's SoA-route nodal solution;
-     one eager sharded float32 V-cycle timed),
-     the 8x8 p5 full-precision sharded multigrid over 1, 2 and 4 shards
-     (equal cycle counts, the 4-shard count dgtpu's, L2(u) within 1e-12),
-     the Stokes mixed route over 4 shards (16x16, held to dgtpu's L2; 8x8
-     with the Chebyshev velocity solver, phase 10's bars; the GMRES(16)
-     refinement at 8x8), every operand and halo row on the card and no
+ 24. the sharded multigrid and the tools (``sharded_and_tools_phases``),
+     every shard on the one card, so every sharded solve replays CUDA
+     graphs: each route graphed, then eager (``eager=True``), bit for bit,
+     with both seconds and the captures' split: the 64x64 p5 mixed route
+     over 4 shards (phase 6's hierarchy and FMG seed; held to phase 6's
+     SoA-route nodal solution; its host spans; its float32 sharded V-cycle
+     replayed and eager beside phase 7's graphed SoA cycle), the 8x8 p5
+     full-precision sharded multigrid over 1, 2 and 4 shards (equal cycle
+     counts, the 4-shard count dgtpu's, L2(u) within 1e-12), the Stokes
+     mixed route over 4 shards (16x16, held to dgtpu's L2; 8x8 with the
+     Chebyshev velocity solver, phase 10's bars; the GMRES(16) refinement
+     at 8x8), then the Stokes 32x32 route over 4 shards graphed (dgtpu's L2
+     bars), every operand and halo row on the card and no
      kernel launched by the sharded solves; ``--profile`` at 8x8 p5 (its
      trace holds K1's and K5's CUDA kernels); the convergence study (rates
      above p + 1 - 0.4) and the figure suite (dgtpu's file names where
@@ -2221,7 +2225,7 @@ def other_route_phases(card, rng, l2_poisson8, stokes8, flagship):
 # with XLA_FLAGS=--xla_force_host_platform_device_count=4
 DGTPU_SHARDED_CYCLES_8X8_P5 = 7
 SHARD_L2_REL_TOL = 1e-12   # 1, 2 and 4 shards: sharding only reorders the psum
-PHASE24_BUDGET_S = 150.0
+PHASE24_BUDGET_S = 300.0
 # the figure suite's files (dgtpu's names for p = 2)
 FIGURE_SUITE_FILES = ["standard_element_p2.png", "legendre_basis_p2.png",
                       "nodal_basis_p2.png", "modal_basis_2d_p2.png", "lebesgue_p2.png",
@@ -2247,44 +2251,126 @@ def on_card(mg):
 
 
 def sharded_stokes(n, factors, velocity_solver="gs"):
-    """The Stokes mixed route at n x n over 4 shards, with the geometric
-    ``factors`` and ``performance.dgs_velocity_solver``; returns the solved
-    DGFEM and its wall seconds."""
+    """The Stokes mixed route's DGFEM at n x n over 4 shards, with the
+    geometric ``factors`` and ``performance.dgs_velocity_solver``, assembled
+    on the card and not yet solved."""
     from dgtpu_torch.api import DGFEM
     from dgtpu_torch.settings import Settings
     params = stokes_params(n)
     params["solver"]["multigrid"]["geometric coarsening"]["coarsening factors"] = factors
     params["performance"]["n_shards"] = 4
     params["performance"]["dgs_velocity_solver"] = velocity_solver
-    t0 = time.perf_counter()
-    dg = DGFEM(device="cuda", settings=Settings(params), solve_multigrid=True)
-    dg.solve()
-    return dg, time.perf_counter() - t0
+    return DGFEM(device="cuda", settings=Settings(params), solve_multigrid=True)
 
 
-def sharded_and_tools_phases(card, dg64, u_soa64):
+def tensor_bits(values):
+    """The tensors and numbers of nested tuples and lists, each as int64
+    views of float64 on the host (NaN and the sign of zero count)."""
+    import torch
+    out = []
+    for v in values:
+        if isinstance(v, (list, tuple)):
+            out += tensor_bits(v)
+        elif isinstance(v, dict):
+            out += tensor_bits([v[k] for k in sorted(v)])
+        elif isinstance(v, torch.Tensor):
+            out.append(v.detach().cpu().to(torch.float64).reshape(-1))
+        else:
+            out.append(torch.tensor([float(v)], dtype=torch.float64))
+    return out
+
+
+def capture_split(made):
+    """The captures of the graphs ``made``: seconds, warm-up / record /
+    instantiate."""
+    return (f"{len(made)} graphs, capture {sum(g.capture_seconds for g in made):.3f} s: "
+            f"warm-up {sum(g.warmup_seconds for g in made):.3f} / record "
+            f"{sum(g.record_seconds for g in made):.3f} / instantiate "
+            f"{sum(g.instantiate_seconds for g in made):.3f} s")
+
+
+def sharded_and_tools_phases(card, dg64, u_soa64, soa_graph_ms):
     """Phase 24: the sharded multigrid (``parallel/``) and the tools on the
-    card.  The 64x64 p5 mixed route (``dg64``, phase 6's hierarchy: factors
-    16,8,4,2, FMG seed) over 4 shards held to phase 6's SoA-route nodal
-    solution ``u_soa64``, and one eager float32 sharded V-cycle timed; the
-    8x8 p5 full-precision sharded multigrid over
+    card.  Every shard sits on the one card, so each sharded solve replays
+    CUDA graphs (dgtpu compiles it): each route runs graphed, then eagerly
+    (``eager=True``), on the same inputs; both seconds, the captures' split
+    and "bit for bit" or the largest difference are printed, and a
+    difference fails the phase.  The 64x64 p5 mixed route (``dg64``, phase
+    6's hierarchy: factors 16,8,4,2, FMG seed) over 4 shards held to phase
+    6's SoA-route nodal solution ``u_soa64``, with the host spans of its
+    graphed solve, and its float32 sharded cycle replayed and eager beside
+    phase 7's graphed SoA cycle (``soa_graph_ms``); the 8x8 p5 full-precision sharded multigrid over
     1, 2 and 4 shards (equal cycle counts, the 4-shard one dgtpu's, L2(u)
     within SHARD_L2_REL_TOL); the Stokes mixed route over 4 shards at 16x16
-    (dgtpu's L2 bars; 32x32 takes minutes eagerly) and at 8x8 with the
-    Chebyshev velocity solver (phase 10's bars), the hierarchies cut to the
-    nearest that 4 shards divide, and the GMRES(16)-wrapped refinement at
-    8x8; every operand and halo row on the card and no kernel launched by
-    the sharded solves; ``--profile`` at 8x8 p5 (its trace holds K1's and
-    K5's CUDA kernels); the convergence study (rates above p + 1 - 0.4) and
-    the figure suite (dgtpu's file names where matplotlib imports, none
-    where it does not).  Returns {path: launch counts} of the profiled
-    route."""
+    (dgtpu's L2 bars) and at 8x8 with the Chebyshev velocity solver (phase
+    10's bars), the hierarchies cut to the nearest that 4 shards divide,
+    the GMRES(16)-wrapped refinement at 8x8, and the 32x32 route graphed
+    (dgtpu's L2 bars); every operand and halo row on the card and no
+    kernel launched by the sharded solves; ``--profile`` at 8x8 p5 (its
+    trace holds K1's and K5's CUDA kernels); the convergence study (rates
+    above p + 1 - 0.4) and the figure suite (dgtpu's file names where
+    matplotlib imports, none where it does not).  Returns {path: launch
+    counts} of the profiled route."""
     import numpy as np
     import torch
     from dgtpu_torch import studies
     from dgtpu_torch.__main__ import main as cli
+    from dgtpu_torch.ops import graphs
     from dgtpu_torch.parallel import halo
+    from dgtpu_torch.utils import trace
     t_phase = time.perf_counter()
+    failures = []
+
+    def in_turns(label, run):
+        """``run(eager)`` -> (values, the graphs it made) graphed, then
+        eagerly, each synchronised on the host clock; the values held bit
+        for bit.  Returns (graphed values, text)."""
+        with graphs.collect() as loops:
+            t0 = time.perf_counter()
+            got, made = run(False)
+            torch.cuda.synchronize()
+            graphed_s = time.perf_counter() - t0
+        made = list(made) + list(loops)
+        t0 = time.perf_counter()
+        ref, _ = run(True)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        a, b = tensor_bits(got), tensor_bits(ref)
+        if len(a) == len(b) and all(x.shape == y.shape and torch.equal(
+                x.view(torch.int64), y.view(torch.int64)) for x, y in zip(a, b)):
+            same = "bit for bit"
+        else:
+            diff = max((float((x - y).abs().max()) for x, y in zip(a, b)
+                        if x.shape == y.shape), default=math.inf)
+            same = f"largest difference {diff:.3e}"
+            failures.append(f"{label}: graphed against eager, {same}")
+        if not made:
+            failures.append(f"{label}: no graph was made on the card")
+        return got, (f"graphed {graphed_s:.3f} s ({capture_split(made)}), eager "
+                     f"{eager_s:.3f} s; graphed against eager: {same}")
+
+    def route(dg, n_shards, precision):
+        """``run(eager)`` of the sharded route on ``dg``: graphed through
+        ``DGFEM.solve()`` (``graphed`` and ``graph_seconds`` held), eager
+        through ``_solve_multigrid_sharded(eager=True)``; values: the
+        post-processed solution, the history and the counts."""
+        def run(eager):
+            shards, dg.settings.performance.n_shards = dg.settings.performance.n_shards, \
+                n_shards
+            try:
+                if eager:
+                    u = dg._postprocess(dg._solve_multigrid_sharded(n_shards, precision,
+                                                                    eager=True)[0])
+                else:
+                    u = dg.solve()
+                    if not (dg.graphed and dg.graph_seconds > 0):
+                        failures.append(f"DGFEM.graphed {dg.graphed}, graph_seconds "
+                                        f"{dg.graph_seconds} on the sharded route")
+            finally:
+                dg.settings.performance.n_shards = shards
+            counts = dg.rounds if precision == "mixed" else dg.cycles
+            return (u, list(dg.mg.history), counts), list(dg.mg.graphs)
+        return run
 
     # -- 64x64 p5, mixed, 4 shards, FMG seed ---------------------------------
     mg = dg64.settings.solver.multigrid
@@ -2293,34 +2379,56 @@ def sharded_and_tools_phases(card, dg64, u_soa64):
         raise AssertionError(f"phase 6's hierarchy does not divide over 4 shards: {admitted}")
     reset_counts()
     halo.EXCHANGES.clear()
-    dg64.settings.performance.n_shards = 4
-    try:
-        dg64.solve()
-        torch.cuda.synchronize()
-    finally:
-        dg64.settings.performance.n_shards = 1
-    on_card(dg64.mg)
-    sol = float(abs(dg64.u_nodal - u_soa64).max() / abs(u_soa64).max())
+    run64 = route(dg64, 4, "mixed")
+    kept = {}
+
+    def graphed_then_kept(eager):
+        with trace.recording() if not eager else contextlib.nullcontext() as rec:
+            out = run64(eager)
+        if not eager:
+            spans = rec.summary(rec.roots("solve")[0])
+            kept["spans"] = ", ".join(
+                f"{name} {spans[name]['total_s']:.3f}" for name in
+                ("solve.cycle_build", "solve.fmg", "solve.capture", "refine.wait",
+                 "solve.postprocess") if name in spans)
+            kept.update(mg=dg64.mg, residual=dg64.solve_residual, rounds=dg64.outer_rounds,
+                        u=dg64.u_nodal.copy(), l2=dg64.L2_error_u, solve=dg64.solve_seconds,
+                        capture=dg64.graph_seconds, exchanges=dict(halo.EXCHANGES))
+            on_card(dg64.mg)
+        return out
+
+    _, text = in_turns("64x64 mixed over 4 shards", graphed_then_kept)
+    sol = float(abs(kept["u"] - u_soa64).max() / abs(u_soa64).max())
     print(f"[24] 64x64 p5 mixed over {dg64.mesh.size} shards on {len(dg64.mesh.cards)} "
           f"card(s) (factors {mg.geometric_coarsening.coarsening_factors}, Nj per level "
           f"{[l.Nj for l in dg64.levels]}, shard counts admitted {admitted}), FMG seed: "
-          f"{dg64.outer_rounds} outer rounds, residual {dg64.solve_residual:.3e} "
-          f"(normalized), L2(u) {dg64.L2_error_u:.9e}, nodal u against phase 6's SoA "
-          f"route {sol:.2e} relative, solve {dg64.solve_seconds:.3f} s; halo exchanges "
-          f"{dict(halo.EXCHANGES)} ({card})", flush=True)
-    if dg64.cycle_kind != "sharded mixed" or not dg64.solve_residual < RES_TOL:
+          f"{kept['rounds']} outer rounds, residual {kept['residual']:.3e} (normalized), "
+          f"L2(u) {kept['l2']:.9e}, nodal u against phase 6's SoA route {sol:.2e} "
+          f"relative; graphed route: solve {kept['solve']:.3f} s + capture "
+          f"{kept['capture']:.3f} s (spans, s: {kept['spans']}), halo exchanges "
+          f"{kept['exchanges']}; {text} ({card})",
+          flush=True)
+    if not kept["residual"] < RES_TOL:
         raise AssertionError("the sharded 64x64 route missed 1e-10")
     if not sol < RES_TOL:
         raise AssertionError(f"the sharded 64x64 solution differs from phase 6's: {sol:.3e}")
-    # one eager float32 sharded V-cycle (plain torch), to set beside phase
-    # 7's graphed SoA cycle
-    mg64 = dg64.mg
+    # the float32 sharded V-cycle: the route's graph replayed against the
+    # eager cycle (plain torch), beside phase 7's graphed SoA cycle
+    mg64 = kept.pop("mg")
     r32 = mg64._bands(dg64.levels[-1].rhs, torch.float32)
-    top = len(dg64.levels) - 1
-    cycle_ms = cuda_ms(lambda: mg64._v_cycle(top, mg64.data32(), r32,
-                                             [torch.zeros_like(b) for b in r32]), 5)
-    print(f"[24] 64x64 p5 sharded float32 V-cycle over 4 shards, eager: {cycle_ms:.2f} ms "
-          f"per cycle (CUDA events over 5 cycles) ({card})", flush=True)
+    zeros = [torch.zeros_like(b) for b in r32]
+    cycle, plain = mg64._cycle32("graphed"), mg64._cycle_fn()
+    same = all(torch.equal(a, b) for a, b in zip(cycle(*r32, *zeros), plain(*r32, *zeros)))
+    replay_ms = cuda_ms(lambda: cycle(*r32, *zeros), 20)
+    eager_ms = cuda_ms(lambda: plain(*r32, *zeros), 5)
+    print(f"[24] 64x64 p5 sharded float32 V-cycle over 4 shards: replayed {replay_ms:.4f} "
+          f"ms, eager {eager_ms:.2f} ms per cycle (CUDA events over 20 / 5 cycles; "
+          f"{eager_ms / replay_ms:.1f}x), phase 7's graphed SoA cycle {soa_graph_ms:.4f} "
+          f"ms; replay against eager cycle: {'bit for bit' if same else 'DIFFERENT'} "
+          f"({card})", flush=True)
+    if not same:
+        failures.append("the 64x64 sharded cycle's replay differs from the eager cycle")
+    del mg64, cycle, plain, r32, zeros
 
     # -- 8x8 p5 full precision over 1, 2 and 4 shards ------------------------
     s8 = settings_for("Rectangle_8X8_nPoly5.xyz", 5)
@@ -2328,18 +2436,20 @@ def sharded_and_tools_phases(card, dg64, u_soa64):
     dg8 = hierarchy(s8)
     runs = {}
     for k in (1, 2, 4):
-        t0 = time.perf_counter()
-        u, res, n = dg8._solve_multigrid_sharded(k, "full")
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        on_card(dg8.mg)
-        dg8._postprocess(u)
-        runs[k] = (n, dg8.L2_error_u, res, secs)
+        def run(eager, k=k):
+            u, res, n = dg8._solve_multigrid_sharded(k, "full", eager=eager)
+            on_card(dg8.mg)
+            u = dg8._postprocess(u)
+            if not eager:
+                runs[k] = (n, dg8.L2_error_u, res)
+            return (u, list(dg8.mg.history), n), list(dg8.mg.graphs)
+        _, text = in_turns(f"8x8 full over {k} shard(s)", run)
+        runs[k] += (text,)
     l2_1 = runs[1][1]
     spread = max(abs(r[1] - l2_1) / l2_1 for r in runs.values())
     print(f"[24] 8x8 p5 full precision, sharded red-black multigrid: "
-          + ", ".join(f"{k} shard(s) {n} cycles, L2(u) {l2!r}, residual {res:.3e}, "
-                      f"{secs:.3f} s" for k, (n, l2, res, secs) in runs.items())
+          + "; ".join(f"{k} shard(s) {n} cycles, L2(u) {l2!r}, residual {res:.3e}, {text}"
+                      for k, (n, l2, res, text) in runs.items())
           + f"; L2(u) spread {spread:.2e} (dgtpu's 4-shard count "
           f"{DGTPU_SHARDED_CYCLES_8X8_P5}) ({card})", flush=True)
     if len({r[0] for r in runs.values()}) != 1 or not spread <= SHARD_L2_REL_TOL:
@@ -2349,40 +2459,64 @@ def sharded_and_tools_phases(card, dg64, u_soa64):
                              f"{DGTPU_SHARDED_CYCLES_8X8_P5}")
 
     # -- Stokes, mixed, 4 shards ---------------------------------------------
-    # 16x16, not 32x32: the eager sharded 32x32 route took 422.8 s on an
-    # H100 (20 stalled plain rounds, then 5 GMRES(16) rounds; PERF.md)
     for n, factors, solver in ((16, "2,4", "gs"), (8, "2", "chebyshev")):
         halo.EXCHANGES.clear()
-        dg, secs = sharded_stokes(n, factors, solver)
-        torch.cuda.synchronize()
+        dg = sharded_stokes(n, factors, solver)
+        _, text = in_turns(f"Stokes {n}x{n} over 4 shards", route(dg, 4, "mixed"))
         on_card(dg.mg)
         rel_l2 = check_stokes_errors(dg, n)
         print(f"[24] Stokes {n}x{n} mixed over {dg.mesh.size} shards (factors {factors}: "
               f"Nj per level {[l.Nj for l in dg.levels]}, velocity solve {solver}): "
               f"outer rounds {dg.rounds}, inner {dg.inner}, residual "
               f"{dg.solve_residual:.3e}, L2(u) {dg.L2_error_u:.9e}, L2(v) "
-              f"{dg.L2_error_v:.9e}, L2(p) {dg.L2_error_p:.9e} (rel to dgtpu {rel_l2}), "
-              f"solve {dg.solve_seconds:.3f} s, {secs:.1f} s with setup ({card})", flush=True)
+              f"{dg.L2_error_v:.9e}, L2(p) {dg.L2_error_p:.9e} (rel to dgtpu {rel_l2}); "
+              f"{text} ({card})", flush=True)
         if not dg.solve_residual < RES_TOL:
             raise AssertionError(f"the sharded {n}x{n} Stokes route missed 1e-10")
     # the route's GMRES(16) retry (16x16 converges without it) on the last
     # route's 8x8 levels, held to phase 10's bars
-    t0 = time.perf_counter()
-    u_g, res_g, n_g = dg.mg.solve_refined(dg.levels[-1].rhs, tol=RES_TOL, n_inner=16,
-                                          inner="gmres")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    rhs8 = dg.levels[-1].rhs
+
+    def retry(eager):
+        before = len(dg.mg.graphs)
+        u, res, n = dg.mg.solve_refined(rhs8, tol=RES_TOL, n_inner=16, inner="gmres",
+                                        eager=eager)
+        return (u, list(dg.mg.history), n), dg.mg.graphs[before:]
+
+    (u_g, hist_g, n_g), text = in_turns("Stokes 8x8 GMRES(16) refinement", retry)
     on_card(dg.mg)
     dg._postprocess(u_g)
     rel_l2 = check_stokes_errors(dg, 8)
     print(f"[24] Stokes 8x8 sharded refinement with GMRES(16)-wrapped cycles: {n_g} outer "
-          f"rounds, residual {res_g:.3e}, L2 rel to dgtpu {rel_l2}, {secs:.1f} s ({card})",
+          f"rounds, residual {hist_g[-1]:.3e}, L2 rel to dgtpu {rel_l2}; {text} ({card})",
           flush=True)
-    if not res_g < RES_TOL:
+    if not hist_g[-1] < RES_TOL:
         raise AssertionError("the sharded GMRES refinement missed 1e-10")
+    # the 32x32 route, graphed only (eagerly it took 422.8 s on an H100:
+    # PERF.md)
+    halo.EXCHANGES.clear()
+    dg = sharded_stokes(32, "2,4,8")
+    t0 = time.perf_counter()
+    dg.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    on_card(dg.mg)
+    rel_l2 = check_stokes_errors(dg, 32)
+    print(f"[24] Stokes 32x32 mixed over {dg.mesh.size} shards (factors 2,4,8: Nj per "
+          f"level {[l.Nj for l in dg.levels]}), graphed: outer rounds {dg.rounds}, inner "
+          f"{dg.inner}, residual {dg.solve_residual:.3e}, L2(u) {dg.L2_error_u:.9e}, "
+          f"L2(v) {dg.L2_error_v:.9e}, L2(p) {dg.L2_error_p:.9e} (rel to dgtpu "
+          f"{rel_l2}); {secs:.1f} s: solve {dg.solve_seconds:.3f} s + capture "
+          f"{dg.graph_seconds:.3f} s ({capture_split(dg.mg.graphs)}) ({card})",
+          flush=True)
+    if not (dg.graphed and dg.solve_residual < RES_TOL):
+        raise AssertionError("the sharded 32x32 Stokes route missed 1e-10 or ran no graph")
+    del dg
     launched = {k: v for k, v in counts().items() if v}
     if launched:
         raise AssertionError(f"the sharded routes launched kernels: {launched}")
+    if failures:
+        raise AssertionError("phase 24: " + "; ".join(failures))
 
     # -- --profile -------------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3014,7 +3148,12 @@ def main():
                                       factors="16,8,4,2", fmg=True))
         with stream_budget(None):
             dg64.solve()
-        sharded_and_tools_phases(card, dg64, dg64.u_nodal)
+        # phase 7's graphed SoA cycle at 64x64 (its kernels' launches are not
+        # the sharded routes')
+        from dgtpu_torch.ops.graphs import CycleGraph
+        soa_graph_ms = marginal_ms(CycleGraph(cycle_of(dg64)),
+                                   dg64.levels[-1].rhs.to(torch.float32), 5)
+        sharded_and_tools_phases(card, dg64, dg64.u_nodal, soa_graph_ms)
         print(card)
         return 0
 
@@ -3330,7 +3469,8 @@ def main():
     other_paths = other_route_phases(card, rng, l2_poisson8, dg8, flagship)
 
     # -- 24: the sharded multigrid, --profile and the studies ----------------
-    sharded_paths = sharded_and_tools_phases(card, dg64, u_soa)
+    sharded_paths = sharded_and_tools_phases(card, dg64, u_soa,
+                                             soa_ms["64x64 p5"]["graph"][0])
 
     # -- 25: the benchmark's cell runner -------------------------------------
     bench_phase(card)

@@ -25,7 +25,8 @@ torch on the same device.
 With ``performance.n_shards > 1`` the multigrid runs sharded over element
 rows (``parallel/halo.py``, ``parallel/stokes_halo.py``): one process drives
 a list of devices, one per shard, in full precision or with float32 sharded
-cycles inside a float64 halo defect loop.  ``automatically open paraview``
+cycles inside a float64 halo defect loop; with every shard on one card its
+solves replay CUDA graphs.  ``automatically open paraview``
 starts the configured executable on the exported ``.vts``.  Nothing falls
 back to the CPU.
 """
@@ -59,7 +60,7 @@ from dgtpu_torch.ops.stokes_stream import StreamedStokesVCycle
 from dgtpu_torch.ops.stream import StreamedVCycle
 from dgtpu_torch.ops.transfer import make_transfer
 from dgtpu_torch.ops.vcycle import RolledVCycle
-from dgtpu_torch.parallel.halo import ShardedMultigrid, make_mesh
+from dgtpu_torch.parallel.halo import LAYOUTS, ShardedMultigrid, make_mesh
 from dgtpu_torch.parallel.stokes_halo import ShardedStokesMultigrid
 from dgtpu_torch.settings import Settings, load_params
 from dgtpu_torch.solvers.amg import solve_amg
@@ -443,7 +444,7 @@ class DGFEM:
         self.cycle_kind = "full precision"
         return u, res, n
 
-    def _solve_multigrid_sharded(self, n_shards, precision="full"):
+    def _solve_multigrid_sharded(self, n_shards, precision="full", eager=False):
         """Multigrid over ``n_shards`` element-row bands (dgtpu's
         ``_solve_multigrid_sharded``, ``api.py:585-672``): Poisson with
         red-black smoothing and a halo exchange, Stokes with the
@@ -453,7 +454,11 @@ class DGFEM:
         the plain refinement stalls.  The shards go to ``make_mesh``'s
         devices: on the card shard k to card k modulo the visible cards,
         so one card may hold every shard (dgtpu refuses fewer devices than
-        shards)."""
+        shards).  The mesh's layout (``halo.layout``, logged before any
+        capture) decides how the solves run: from CUDA graphs where every
+        shard sits on one card (dgtpu compiles them), eagerly on the CPU and
+        across cards; their captures go to ``graph_seconds``.  ``eager``:
+        no graph on the card either (a reference for checks)."""
         mesh = make_mesh(n_shards, self.device)
         finest = self.levels[-1]
         mixed = precision == "mixed"
@@ -471,36 +476,42 @@ class DGFEM:
                         self.logger.warning(
                             f"sharded Stokes multigrid smooths with distributive GS, "
                             f"not the configured {side.smoother!r}")
-            self.mg = ShardedStokesMultigrid(self.levels, self.settings, mesh=mesh,
-                                             transfers=self.transfers,
-                                             transfer_types=self.transfer_types)
-        else:
-            self.mg = ShardedMultigrid(self.levels, self.transfers, self.settings,
-                                       mesh=mesh)
+        with trace.span("solve.cycle_build"):
+            if "p" in self.vars:
+                self.mg = ShardedStokesMultigrid(self.levels, self.settings, mesh=mesh,
+                                                 transfers=self.transfers,
+                                                 transfer_types=self.transfer_types)
+            else:
+                self.mg = ShardedMultigrid(self.levels, self.transfers, self.settings,
+                                           mesh=mesh)
         cards = mesh.cards
         self.mesh = mesh
         self.cycle_kind = f"sharded {'mixed' if mixed else 'full precision'}"
         self.logger.info(f"sharded multigrid over {n_shards} shards on {len(cards)} "
-                         f"{cards[0].type} device(s) {[str(d) for d in cards]}")
+                         f"{cards[0].type} device(s) {[str(d) for d in cards]}: "
+                         f"{LAYOUTS['eager'] if eager else LAYOUTS[self.mg.layout]}"
+                         f"{' (asked for)' if eager else ''}")
         if not mixed:
-            u, res, n = self.mg.solve(finest.rhs)
+            u, res, n = self.mg.solve(finest.rhs, eager=eager)
             self.cycles = n
-            return u, res, n
-        tol = min(float(self.settings.solver.multigrid.tolerance), 1e-10)
-        self.logger.info("sharded mixed-precision refinement (f32 inner cycles, "
-                         "f64 halo defect loop)")
-        u, res, n = self.mg.solve_refined(finest.rhs, tol=tol)
-        self.inner, self.rounds = "cycles", {"cycles": n}
-        if "p" in self.vars and res >= tol:
-            # the single-device rescue: deep hierarchies push the stand-alone
-            # cycle contraction past 1; GMRES(16) preconditioned by the
-            # sharded cycle converges on the isolated divergent modes
-            self.logger.warning(f"sharded mixed refinement stalled at {res:.3e}; "
-                                "retrying with f32 GMRES-wrapped inner cycles")
-            u, res, n = self.mg.solve_refined(finest.rhs, tol=tol, n_inner=16,
-                                              inner="gmres")
-            self.inner, self.rounds["gmres"] = "gmres", n
-        self.outer_rounds = n
+        else:
+            tol = min(float(self.settings.solver.multigrid.tolerance), 1e-10)
+            self.logger.info("sharded mixed-precision refinement (f32 inner cycles, "
+                             "f64 halo defect loop)")
+            u, res, n = self.mg.solve_refined(finest.rhs, tol=tol, eager=eager)
+            self.inner, self.rounds = "cycles", {"cycles": n}
+            if "p" in self.vars and res >= tol:
+                # the single-device rescue: deep hierarchies push the
+                # stand-alone cycle contraction past 1; GMRES(16)
+                # preconditioned by the sharded cycle converges on the
+                # isolated divergent modes
+                self.logger.warning(f"sharded mixed refinement stalled at {res:.3e}; "
+                                    "retrying with f32 GMRES-wrapped inner cycles")
+                u, res, n = self.mg.solve_refined(finest.rhs, tol=tol, n_inner=16,
+                                                  inner="gmres", eager=eager)
+                self.inner, self.rounds["gmres"] = "gmres", n
+            self.outer_rounds = n
+        self._graphs += self.mg.graphs
         return u, res, n
 
     def _multigrid_solver(self):

@@ -23,8 +23,10 @@ intermediates from the graph's private memory pool.
 The launch counters stay truthful: the capture records each kernel
 wrapper's ``launches`` delta (the launches the graph holds, which the
 capture itself does not run) and takes it back, and every replay adds it
-again.  ``CycleGraph.captures`` and ``CycleGraph.replays`` count captures
-and replays over all graphs.
+again; so with the sharded multigrid's halo exchanges
+(``parallel/halo.EXCHANGES``), which a replay copies on the card without
+the host's count.  ``CycleGraph.captures`` and ``CycleGraph.replays`` count
+captures and replays over all graphs.
 
 No CPU mode and no fallback: CPU tensors raise, and a capture that fails
 raises; the caller never gets the eager cycle in its place.
@@ -64,12 +66,33 @@ CHUNK_SECONDS = 1e-3
 _collectors = []
 
 
+def _exchanges():
+    """The sharded multigrid's halo exchange counter (``parallel/halo.py``;
+    imported here: that module imports the multigrid solver, which imports
+    this one)."""
+    from dgtpu_torch.parallel.halo import EXCHANGES
+    return EXCHANGES
+
+
+def _replayed(launches, exchanges, n):
+    """Add ``n`` replays' kernel launches and halo exchanges to the counters
+    (a replay runs on the card and bumps no host counter itself)."""
+    for kern, k in launches.items():
+        kern.launches += k * n
+    if exchanges:
+        _exchanges().update({kind: k * n for kind, k in exchanges.items()})
+    CycleGraph.replays += n
+    trace.count("graph.replays", n)
+
+
 def _record(warm, record):
     """Capture ``record()`` into a new CUDA graph after one eager ``warm()``
-    on the warm-up side stream; returns ``(graph, launches, (warm-up,
-    record, instantiate) seconds)``.  ``launches``: {kernel wrapper:
-    launches per replay}, taken back from the counters (captured, not
+    on the warm-up side stream; returns ``(graph, launches, exchanges,
+    (warm-up, record, instantiate) seconds)``.  ``launches``: {kernel
+    wrapper: launches per replay}; ``exchanges``: {device type: halo
+    exchanges per replay}; both taken back from the counters (captured, not
     run)."""
+    exchanged = _exchanges()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     device = torch.cuda.current_device()
@@ -83,6 +106,7 @@ def _record(warm, record):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     before = {k: k.launches for k in COUNTED}
+    exchanged_before = dict(exchanged)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         record()
@@ -90,11 +114,14 @@ def _record(warm, record):
     launches = {k: k.launches - before[k] for k in COUNTED if k.launches != before[k]}
     for kern, n in launches.items():
         kern.launches -= n
+    exchanges = {kind: n - exchanged_before.get(kind, 0) for kind, n in exchanged.items()
+                 if n != exchanged_before.get(kind, 0)}
+    exchanged.subtract(exchanges)
     CycleGraph.captures += 1
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     trace.count("graph.captures")
-    return graph, launches, (t1 - t0, t2 - t1, t3 - t2)
+    return graph, launches, exchanges, (t1 - t0, t2 - t1, t3 - t2)
 
 
 class CycleGraph:
@@ -138,7 +165,7 @@ class CycleGraph:
         self.fn = fn
         self.name = name
         self.graph = None
-        self.launches = {}
+        self.launches, self.exchanges = {}, {}
         self.capture_seconds = 0.0
         self.warmup_seconds = self.record_seconds = self.instantiate_seconds = 0.0
 
@@ -163,10 +190,7 @@ class CycleGraph:
             for s, x in zip(self.static_in, inputs):
                 s.copy_(x)
         self.graph.replay()
-        for kern, n in self.launches.items():
-            kern.launches += n
-        CycleGraph.replays += 1
-        trace.count("graph.replays")
+        _replayed(self.launches, self.exchanges, 1)
         if isinstance(self.static_out, tuple):
             return tuple(o.clone() for o in self.static_out)
         return self.static_out.clone()
@@ -177,7 +201,7 @@ class CycleGraph:
         def record():
             self.static_out = self.fn(*self.static_in)
 
-        self.graph, self.launches, seconds = _record(
+        self.graph, self.launches, self.exchanges, seconds = _record(
             lambda: self.fn(*self.static_in), record)
         self.fn = None
         self.warmup_seconds, self.record_seconds, self.instantiate_seconds = seconds
@@ -266,7 +290,7 @@ class LoopGraph(MaskedLoop):
                                  "tensors (run MaskedLoop on the CPU)")
         super().__init__(cond, body, state, name)
         self.graph = None
-        self.launches = {}
+        self.launches, self.exchanges = {}, {}
         self.capture_seconds = 0.0
         self.warmup_seconds = self.record_seconds = self.instantiate_seconds = 0.0
         for got in _collectors:
@@ -277,7 +301,7 @@ class LoopGraph(MaskedLoop):
             return
         with trace.span(self.name):
             warm = (tuple(s.clone() for s in self.state), self.flag.clone())
-            self.graph, self.launches, seconds = _record(
+            self.graph, self.launches, self.exchanges, seconds = _record(
                 lambda: self.step(*warm), lambda: self.step(self.state, self.flag))
         self.warmup_seconds, self.record_seconds, self.instantiate_seconds = seconds
         self.capture_seconds = sum(seconds)
@@ -285,10 +309,7 @@ class LoopGraph(MaskedLoop):
     def _iterate(self, n):
         for _ in range(n):
             self.graph.replay()
-        for kern, k in self.launches.items():
-            kern.launches += k * n
-        CycleGraph.replays += n
-        trace.count("graph.replays", n)
+        _replayed(self.launches, self.exchanges, n)
 
 
 def while_loop(cond, body, state, name="loop.capture"):

@@ -17,6 +17,16 @@ peer copy across cards); ``psum`` is a sum on the first shard's device and
 torch, as dgtpu's are ``jnp`` ops (no Pallas kernel runs on dgtpu's
 sharded path).
 
+dgtpu compiles each sharded solve into one program with its loop on the
+device.  Where every shard sits on one card (``layout`` 'graphed') the port
+replays CUDA graphs instead: the float32 cycle of the refined solve and its
+float64 halo defect are ``CycleGraph``s, the full-precision solve's loop
+over cycles a ``LoopGraph`` (``ops/graphs.while_loop``); the halo copies,
+the psum and the replicated coarse solve are inside the captures.  On the
+CPU the same code runs eagerly, its loops as ``MaskedLoop``s.  A mesh over
+several cards ('eager') keeps host loops that read the residual after every
+cycle: one graph cannot hold the peer copies between cards.
+
 Data layout per level (band k of each):
 
     blocks : (Nj_loc, Ni, 5, B, B)   stencil slots [self, iL, iR, jL, jR]
@@ -29,14 +39,18 @@ reference's lexicographic sweeps.
 """
 
 import collections
+import math
 
 import numpy as np
 import torch
 
+from dgtpu_torch.ops import graphs
+from dgtpu_torch.ops.graphs import CycleGraph
 from dgtpu_torch.ops.linalg import host_inv, host_lu_inverse
 from dgtpu_torch.ops.rolled import bmv
 from dgtpu_torch.ops.smoothers import SMOOTHER_ALIASES, estimate_rho_dinv_a
 from dgtpu_torch.solvers.multigrid import SmootherConfig
+from dgtpu_torch.utils import trace
 
 # halo exchanges made, by the device type of the bands ('cuda' or 'cpu'):
 # a run on the card shows that its halo rows stayed on the card
@@ -70,6 +84,22 @@ class ShardMesh:
     def join(self, bands):
         """The bands concatenated on the first shard's device."""
         return torch.cat([b.to(self.devices[0]) for b in bands])
+
+
+# how the sharded solves run on a mesh (``layout``), in the route's log
+LAYOUTS = {"graphed": "every shard on one card: the solves replay CUDA graphs",
+           "masked": "on the CPU: the graphed solves' code, run eagerly",
+           "eager": "the shards span several cards: host loops, one residual read "
+                    "a cycle (one CUDA graph cannot hold the peer copies)"}
+
+
+def layout(mesh):
+    """'graphed' where every shard sits on one CUDA device, 'masked' on the
+    CPU, 'eager' where the shards span several cards."""
+    cards = mesh.cards
+    if len(cards) > 1:
+        return "eager"
+    return "graphed" if cards[0].type == "cuda" else "masked"
 
 
 def make_mesh(n_shards, device="cuda"):
@@ -329,6 +359,53 @@ def _gather_solve(mesh, coarse_inv, bands):
     return mesh.split(e)
 
 
+def solve_cycles(cycle, norm, fields, res0, max_cycles, tol, loop):
+    """dgtpu's full-precision solve loop (``halo.py:626-641``): while ``n <
+    max_cycles``, ``res >= tol`` and ``res`` is finite, ``fields =
+    cycle(fields)`` and ``res = norm(fields) / res0``, from ``res =
+    norm(fields) / res0``.  ``fields``: a list of bands; ``res0``: a 0-d
+    tensor.  Returns (fields, res, n, history), the history the normalized
+    residual before each cycle and after the last.
+
+    ``loop``: dgtpu's ``while_loop`` as ``graphs.run_while``, one cycle and
+    its residual an iteration, the history a device buffer written through
+    the counter and read once at the end (on one card a ``LoopGraph``, a
+    replay a cycle; on the CPU a ``MaskedLoop``); else a host loop that
+    reads the residual after every cycle.  Both give the same bits: the
+    quotient is the same IEEE division on the device as on the host."""
+    if not loop:
+        res0 = float(res0)
+        res = float(norm(fields)) / res0
+        hist, n = [], 0
+        while n < max_cycles and res >= tol and math.isfinite(res):
+            hist.append(res)
+            fields = cycle(fields)
+            res = float(norm(fields)) / res0
+            n += 1
+        return fields, res, n, hist + [res]
+    dev = res0.device
+
+    def cond(state):
+        n, res = state[:2]
+        return (n < max_cycles) & (res >= tol) & torch.isfinite(res)
+
+    def body(state):
+        n, res, res0, hist, *f = state
+        hist = hist.index_copy(0, n.view(1), res.view(1))
+        f = cycle(f)
+        return (n + 1, norm(f) / res0, res0, hist, *f)
+
+    # the bands are cloned: the loop writes into its state
+    state = (torch.zeros((), dtype=torch.int64, device=dev), norm(fields) / res0, res0,
+             torch.full((max_cycles + 1,), math.nan, dtype=res0.dtype, device=dev),
+             *(f.clone() for f in fields))
+    n, res, _, hist, *fields = graphs.run_while(cond, body, state, max_steps=max_cycles)
+    hist = hist.index_copy(0, n.view(1), res.view(1))
+    got = torch.cat([n.view(1).to(hist.dtype), hist]).tolist()   # the one read
+    n = int(got[0])
+    return fields, got[n + 1], n, got[1:n + 2]
+
+
 def _check_defect(defect):
     """The port's defect is native float64: 'auto' and 'f64' both mean it."""
     if defect == "df32":
@@ -400,7 +477,45 @@ class _Data:
         return out + [self.coarse_inv]
 
 
-class ShardedMultigrid:
+class _Graphs:
+    """The graphed solves' plumbing both sharded multigrids share: the
+    mesh's ``layout``, the ``CycleGraph``s a solver captured (``graphs``;
+    the route counts them in ``graph_seconds``) and its float32 cycle as a
+    function of tensors (``_cycle_fn``, each class's own)."""
+
+    @property
+    def layout(self):
+        return layout(self.mesh)
+
+    def _mode(self, eager):
+        """'eager' where the caller asks for it (a reference for checks,
+        never a default), else the mesh's layout."""
+        return "eager" if eager else self.layout
+
+    def _graph(self, fn, mode, key, name="solve.capture"):
+        """``fn`` as a ``CycleGraph`` in 'graphed' mode, else ``fn`` itself;
+        every graph is listed in ``graphs``.  One graph per ``key`` and
+        solver: a later refined solve, the GMRES retry included, replays
+        the first's (``key`` None: a graph of its own)."""
+        if mode != "graphed":
+            return fn
+        if key in self._keyed:
+            return self._keyed[key]
+        graph = CycleGraph(fn, name)
+        self.graphs.append(graph)
+        if key is not None:
+            self._keyed[key] = graph
+        return graph
+
+    def _cycle32(self, mode):
+        """The float32 cycle, ``(*rhs fields, *u fields) -> u fields`` over
+        the bands; in 'graphed' mode the graph that the refined solves'
+        inner cycles, FMG seeds (the finest cycle) and GMRES preconditioner
+        all replay."""
+        return self._graph(self._cycle_fn(), mode, "cycle")
+
+
+class ShardedMultigrid(_Graphs):
     """Sharded Poisson multigrid over a ``ShardMesh`` (dgtpu's
     ``ShardedMultigrid``).
 
@@ -511,6 +626,7 @@ class ShardedMultigrid:
             raise NotImplementedError(
                 f"the sharded multigrid implements V, W and F, not {self.cycle_type!r}")
         self.full_multigrid = bool(getattr(mg, "full_multigrid", False))
+        self.graphs, self._keyed = [], {}
 
     def data32(self):
         """Float32 casts of the cycle operands (built once)."""
@@ -603,9 +719,10 @@ class ShardedMultigrid:
         u = _add(u, self.prolong(k, data, e_c))
         return self._smooth(k, data, rhs, u, post)
 
-    def _fmg(self, data, rhs):
+    def _fmg(self, data, rhs, finest_cycle=None):
         """Full-multigrid (nested-iteration) guess: restrict the rhs down,
-        solve the coarsest level, prolong up with one cycle per level."""
+        solve the coarsest level, prolong up with one cycle per level; the
+        finest level's through ``finest_cycle`` where given (``_cycle32``)."""
         n_lev = len(self.levels)
         rhss = [rhs]
         for k in range(n_lev - 1, 0, -1):
@@ -613,84 +730,117 @@ class ShardedMultigrid:
         rhss = rhss[::-1]                   # coarsest first
         u = self._v_cycle(0, data, rhss[0], _zeros_like(rhss[0]))
         for k in range(1, n_lev):
-            u = self._v_cycle(k, data, rhss[k], self.prolong(k, data, u))
+            if k == n_lev - 1 and finest_cycle is not None:
+                u = list(finest_cycle(*rhss[k], *self.prolong(k, data, u)))
+            else:
+                u = self._v_cycle(k, data, rhss[k], self.prolong(k, data, u))
         return u
+
+    def _cycle_fn(self):
+        data, n, top = self.data32(), self.mesh.size, len(self.levels) - 1
+
+        def cycle(*bands):
+            return tuple(self._v_cycle(top, data, list(bands[:n]), list(bands[n:])))
+
+        return cycle
 
     def _bands(self, vec, dtype=None):
         B = self.levels[-1].N_DOF_sol_tot
         g = vec_to_grid(vec, self.Ni, self.Nj, B)
         return self.mesh.split(g if dtype is None else g.to(dtype))
 
-    def solve(self, rhs_vec, u0_vec=None):
+    def solve(self, rhs_vec, u0_vec=None, eager=False):
         """Full-precision cycles to ``solver.multigrid.tolerance``; returns
-        (u, res, n) with the residual history in ``self.history``."""
+        (u, res, n) with the residual history in ``self.history``.  The
+        cycles run as ``solve_cycles``: dgtpu's ``while_loop`` (a
+        ``LoopGraph`` on one card, a ``MaskedLoop`` on the CPU) unless the
+        layout is 'eager' or the caller asks for ``eager`` (the host loop, a
+        reference for checks)."""
         data = self.data
         blocks = data.blocks[-1]
         rhs = self._bands(rhs_vec)
         u = self._bands(u0_vec) if u0_vec is not None else _zeros_like(rhs)
-        n_lev = len(self.levels)
+        top = len(self.levels) - 1
         if self.full_multigrid:
             # FMG guess; the normalization stays ||rhs|| so "res <= tol" keeps
             # its relative-to-zero-iterate meaning
             u = _add(u, self._fmg(data, _sub(rhs, _matvec_with_halo(blocks, u))))
-            res0 = float(_pnorm2(rhs))
+            res0 = _pnorm2(rhs)
         else:
-            res0 = float(_pnorm2(_sub(rhs, _matvec_with_halo(blocks, u))))
-        res = float(_pnorm2(_sub(rhs, _matvec_with_halo(blocks, u)))) / res0
-        hist, n = [], 0
-        while n < self.max_cycles and res >= self.tol and np.isfinite(res):
-            hist.append(res)
-            u = self._v_cycle(n_lev - 1, data, rhs, u)
-            res = float(_pnorm2(_sub(rhs, _matvec_with_halo(blocks, u)))) / res0
-            n += 1
-        self.history = hist + [res]
+            res0 = _pnorm2(_sub(rhs, _matvec_with_halo(blocks, u)))
+
+        def cycle(u):
+            return self._v_cycle(top, data, rhs, u)
+
+        def norm(u):
+            return _pnorm2(_sub(rhs, _matvec_with_halo(blocks, u)))
+
+        u, res, n, self.history = solve_cycles(cycle, norm, u, res0, self.max_cycles,
+                                               self.tol, self._mode(eager) != "eager")
         return grid_to_vec(self.mesh.join(u)), res, n
 
     # -- mixed-precision refinement over the shards --------------------------
 
-    def build_refined(self, tol=1e-10, n_inner=6, max_outer=20, defect="auto"):
+    def build_refined(self, tol=1e-10, n_inner=6, max_outer=20, defect="auto",
+                      eager=False):
         """Sharded mixed-precision defect correction: one float64 halo
         residual per outer round, the inner correction as ``n_inner`` float32
         sharded cycles.  The defect is native float64 (``defect`` 'auto' or
         'f64'; dgtpu's 'df32' is not ported).  With
         ``solver.multigrid.full_multigrid`` on, the outer loop is seeded with
         the float32 FMG guess on the initial defect, while the criterion
-        stays normalized by the pre-seed residual.  Returns
-        ``solve(rhs_bands, u0_bands) -> (u_bands, res, n, history)``."""
+        stays normalized by the pre-seed residual.  On one card the cycle
+        and the defect (``rhs - A u``, its float32 cast and its norm) replay
+        as CUDA graphs: a round is ``n_inner`` replays of the cycle (dgtpu's
+        ``fori_loop``), one of the defect and one read of the norm; the FMG
+        seed's finest cycle replays the cycle's graph, the rest of it runs
+        once, eagerly.  ``eager``: the same rounds with no graph (a
+        reference for checks).  Returns ``solve(rhs_bands, u0_bands) ->
+        (u_bands, res, n, history)``."""
         _check_defect(defect)
-        n_lev = len(self.levels)
+        mode = self._mode(eager)
+        n = self.mesh.size
         b64 = self.data.blocks[-1]
         data = self.data32()
         f32 = torch.float32
+        cycle = self._cycle32(mode)
+
+        def defect_fn(*bands):
+            r = _sub(bands[:n], _matvec_with_halo(b64, bands[n:]))
+            return (*_cast(r, f32), _pnorm2(r))
+
+        residual = self._graph(defect_fn, mode, "defect")
 
         def inner(r32):
             e = _zeros_like(r32)
             for _ in range(n_inner):
-                e = self._v_cycle(n_lev - 1, data, r32, e)
+                e = list(cycle(*r32, *e))
             return e
 
         def solve(rhs, u):
-            r = _sub(rhs, _matvec_with_halo(b64, u))
-            res0 = float(_pnorm2(r))
+            *r32, res0 = residual(*rhs, *u)      # res0 stays on the device
             if self.full_multigrid:
-                u = _add(u, _cast(self._fmg(data, _cast(r, f32)), rhs[0].dtype))
-                r = _sub(rhs, _matvec_with_halo(b64, u))
-            res, hist, n = 1.0, [], 0
-            while n < max_outer and res >= tol and np.isfinite(res):
+                with trace.span("solve.fmg"):
+                    u = _add(u, _cast(self._fmg(data, r32, finest_cycle=cycle),
+                                      rhs[0].dtype))
+                *r32, _ = residual(*rhs, *u)
+            res, hist, k = 1.0, [], 0
+            while k < max_outer and res >= tol and math.isfinite(res):
                 hist.append(res)
-                u = _add(u, _cast(inner(_cast(r, f32)), rhs[0].dtype))
-                r = _sub(rhs, _matvec_with_halo(b64, u))
-                res = float(_pnorm2(r)) / res0
-                n += 1
-            return u, res, n, hist + [res]
+                u = _add(u, _cast(inner(r32), rhs[0].dtype))
+                *r32, norm = residual(*rhs, *u)
+                with trace.span("refine.wait"):
+                    res = float(norm / res0)
+                k += 1
+            return u, res, k, hist + [res]
 
         return solve
 
     def solve_refined(self, rhs_vec, u0_vec=None, tol=1e-10, n_inner=6, max_outer=20,
-                      defect="auto"):
+                      defect="auto", eager=False):
         """Float64-accuracy sharded solve; returns (u, res, n_outer)."""
         fn = self.build_refined(tol=tol, n_inner=n_inner, max_outer=max_outer,
-                                defect=defect)
+                                defect=defect, eager=eager)
         rhs = self._bands(rhs_vec, torch.float64)
         u0 = self._bands(u0_vec) if u0_vec is not None else _zeros_like(rhs)
         u, res, n, self.history = fn(rhs, u0)

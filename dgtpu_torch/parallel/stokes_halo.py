@@ -20,7 +20,15 @@ dense sweeps; for the 13-point DG operator the checkerboard coloring is a
 hybrid Jacobi/GS pass, which is fine for a smoother.  (dgtpu's design note:
 cell-wise Vanka on the local-ordering saddle stencil diverges on this SIP-DG
 discretization, so the distributive transform is structural.)
+
+The solves run as ``parallel/halo.py``'s do: on one card from CUDA graphs
+(the float32 cycle, the float64 saddle defect, the GMRES(16)-wrapped inner
+solve's matvec and arithmetic stages, the full-precision loop as a
+``LoopGraph``), on the CPU eagerly with masked loops, across cards as host
+loops.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -33,12 +41,13 @@ from dgtpu_torch.ops.smoothers import estimate_rho_dinv_a
 from dgtpu_torch.ops.stokes_soa import _blockdiag2
 from dgtpu_torch.ops.transfer import p_restriction
 from dgtpu_torch.parallel.halo import (ShardColorPack, _add, _cast, _check_defect,
-                                       _chebyshev_sweep, _level_smoother_cfgs,
+                                       _chebyshev_sweep, _Graphs, _level_smoother_cfgs,
                                        _local_offdiag, _matvec_with_halo as _matvec,
                                        _psum, _rb_gs_sweep_packed, _sub, _zeros_like,
                                        make_mesh, reshape_level,
-                                       shardable_device_counts)
-from dgtpu_torch.solvers.refinement import gmres_correction
+                                       shardable_device_counts, solve_cycles)
+from dgtpu_torch.solvers.refinement import gmres_correction, gmres_stages
+from dgtpu_torch.utils import trace
 
 
 class _LevelData:
@@ -188,6 +197,50 @@ def _on(s, a):
     return s.to(a.device) if torch.is_tensor(s) else s
 
 
+def _flatten(values):
+    """Tensors and ``ShardVector``s -> (their tensors, each value's part
+    count: 0 for a tensor)."""
+    flat, kinds = [], []
+    for v in values:
+        if isinstance(v, ShardVector):
+            flat += v.parts
+            kinds.append(len(v.parts))
+        else:
+            flat.append(v)
+            kinds.append(0)
+    return flat, kinds
+
+
+def _unflatten(flat, kinds):
+    out, i = [], 0
+    for k in kinds:
+        out.append(ShardVector(list(flat[i:i + k])) if k else flat[i])
+        i += k or 1
+    return out
+
+
+def _over_parts(stage, graph):
+    """``stage``, a function of tensors and ``ShardVector``s returning one
+    value or a tuple of them, called through ``graph`` (``CycleGraph``) of
+    their tensors: a GMRES stage replayed over the shards' parts."""
+    made = {}
+
+    def call(*args):
+        flat, kinds = _flatten(args)
+        if not made:
+            def fn(*tensors):
+                out = stage(*_unflatten(tensors, kinds))
+                many = isinstance(out, tuple)
+                out_flat, made["kinds"] = _flatten(out if many else (out,))
+                made["many"] = many
+                return tuple(out_flat)
+            made["graph"] = graph(fn)
+        out = _unflatten(made["graph"](*flat), made["kinds"])
+        return tuple(out) if made["many"] else out[0]
+
+    return call
+
+
 def _dot(a, b):
     """The mesh's psum dot product (on the first shard's device)."""
     return _psum([torch.dot(x, y) for x, y in zip(a.parts, b.parts)])
@@ -197,7 +250,7 @@ def _norm(a):
     return torch.sqrt(_psum([torch.sum(x * x) for x in a.parts]))
 
 
-class ShardedStokesMultigrid:
+class ShardedStokesMultigrid(_Graphs):
     """Sharded Stokes cycle with distributive-GS smoothing (dgtpu's
     ``ShardedStokesMultigrid``).
 
@@ -338,6 +391,7 @@ class ShardedStokesMultigrid:
                 f"{self.cycle_type!r}")
         self.full_multigrid = bool(getattr(mg, "full_multigrid", False))
         self._data32 = None
+        self.graphs, self._keyed = [], {}
 
     def _operands(self, dtype=None):
         """(level data, coarse inverse, Rs, Ps, velocity packs) in ``dtype``
@@ -416,9 +470,11 @@ class ShardedStokesMultigrid:
                                apack=apacks[k], cheb=self.cheb[k])
         return uv, p
 
-    def _fmg(self, ops, f_mom, f_cont):
+    def _fmg(self, ops, f_mom, f_cont, finest_cycle=None):
         """Full-multigrid guess: restrict the saddle rhs to the coarsest
-        level, solve, prolong upward with one configured cycle per level."""
+        level, solve, prolong upward with one configured cycle per level;
+        the finest level's through ``finest_cycle`` where given
+        (``_cycle32``)."""
         _, _, Rs, Ps, _ = ops
         n_lev = len(self.levels)
         rhss = [(f_mom, f_cont)]
@@ -428,11 +484,27 @@ class ShardedStokesMultigrid:
             rhss.append((self._restrict_field(k, Ruv, fm), self._restrict_field(k, Rp, fc)))
         rhss = rhss[::-1]                   # coarsest first
         uv, p = self._coarse_solve(ops[1], *rhss[0])
+        n = self.mesh.size
         for k in range(1, n_lev):
             Puv, Pp = Ps[k - 1]
-            uv, p = self._v_cycle(k, ops, *rhss[k], self._prolong_field(k, Puv, uv),
-                                  self._prolong_field(k, Pp, p))
+            uv, p = self._prolong_field(k, Puv, uv), self._prolong_field(k, Pp, p)
+            if k == n_lev - 1 and finest_cycle is not None:
+                out = finest_cycle(*rhss[k][0], *rhss[k][1], *uv, *p)
+                uv, p = list(out[:n]), list(out[n:])
+            else:
+                uv, p = self._v_cycle(k, ops, *rhss[k], uv, p)
         return uv, p
+
+    def _cycle_fn(self):
+        ops, n, top = self._operands(torch.float32), self.mesh.size, len(self.levels) - 1
+
+        def cycle(*b):
+            # (*f_mom, *f_cont, *uv, *p) -> (*uv, *p)
+            uv, p = self._v_cycle(top, ops, list(b[:n]), list(b[n:2 * n]),
+                                  list(b[2 * n:3 * n]), list(b[3 * n:]))
+            return (*uv, *p)
+
+        return cycle
 
     # -- host-facing API -------------------------------------------------------
 
@@ -450,11 +522,15 @@ class ShardedStokesMultigrid:
         uv_g = _elem_uv_to_global(self.mesh.join(uv).reshape(-1), lvl.N, lvl.N_DOF_sol["u"])
         return torch.cat([uv_g, self.mesh.join(p).reshape(-1)])
 
-    def solve(self, rhs_global, u0_global=None):
+    def solve(self, rhs_global, u0_global=None, eager=False):
         """Full-precision cycles to ``solver.multigrid.tolerance``; returns
-        (u, res, n) with the residual history in ``self.history``."""
+        (u, res, n) with the residual history in ``self.history``; the
+        cycles run as ``halo.solve_cycles`` (a ``LoopGraph`` on one card, a
+        ``MaskedLoop`` on the CPU, the host loop across cards or with
+        ``eager``, a reference for checks)."""
         ops = self._operands()
         top = self.data[-1]
+        n_sh = self.mesh.size
         f_mom, f_cont = self._split_fields(rhs_global)
         if u0_global is None:
             uv, p = _zeros_like(f_mom), _zeros_like(f_cont)
@@ -465,45 +541,62 @@ class ShardedStokesMultigrid:
             # FMG guess on the defect; the normalization stays ||rhs||
             e_uv, e_p = self._fmg(ops, r0m, r0c)
             uv, p = _add(uv, e_uv), _add(p, e_p)
-            res0 = float(_pnorm_pair(f_mom, f_cont))
+            res0 = _pnorm_pair(f_mom, f_cont)
         else:
-            res0 = float(_pnorm_pair(r0m, r0c))
+            res0 = _pnorm_pair(r0m, r0c)
         n_lev = len(self.levels)
-        res = float(_pnorm_pair(*_saddle_residual(top, f_mom, f_cont, uv, p))) / res0
-        hist, n = [], 0
-        while n < self.max_cycles and res >= self.tol and np.isfinite(res):
-            hist.append(res)
-            uv, p = self._v_cycle(n_lev - 1, ops, f_mom, f_cont, uv, p)
-            res = float(_pnorm_pair(*_saddle_residual(top, f_mom, f_cont, uv, p))) / res0
-            n += 1
-        self.history = hist + [res]
-        return self._join_fields(uv, p), res, n
+
+        def cycle(f):
+            uv, p = self._v_cycle(n_lev - 1, ops, f_mom, f_cont, f[:n_sh], f[n_sh:])
+            return uv + p
+
+        def norm(f):
+            return _pnorm_pair(*_saddle_residual(top, f_mom, f_cont, f[:n_sh], f[n_sh:]))
+
+        f, res, n, self.history = solve_cycles(cycle, norm, uv + p, res0, self.max_cycles,
+                                               self.tol, self._mode(eager) != "eager")
+        return self._join_fields(f[:n_sh], f[n_sh:]), res, n
 
     # -- mixed-precision refinement over the shards ---------------------------
 
     def build_refined(self, tol=1e-10, n_inner=6, max_outer=20, defect="auto",
-                      inner="cycles"):
+                      inner="cycles", eager=False):
         """Sharded Stokes mixed-precision defect correction: one float64
         saddle residual per outer round (halo component matvecs), the inner
         correction as ``n_inner`` float32 sharded DGS cycles, or with
         ``inner='gmres'`` GMRES(n_inner) right-preconditioned by one sharded
         cycle (``solvers.refinement.gmres_correction`` over ``ShardVector``s
         with the mesh's psum dot and norm).  The defect is native float64
-        (``defect`` 'auto' or 'f64').  Returns ``solve(f_mom, f_cont, uv0,
-        p0) -> (uv, p, res, n, history)``."""
+        (``defect`` 'auto' or 'f64').  On one card the cycle, the defect
+        (the saddle residual, its float32 cast and its norm), the GMRES
+        matvec and each arithmetic stage of the GMRES step replay as CUDA
+        graphs (the preconditioner M replays the cycle's graph from zero,
+        A M the cycle's and the matvec's); a round reads the norm once.
+        ``eager``: the same rounds with no graph (a reference for checks).
+        Returns ``solve(f_mom, f_cont, uv0, p0) -> (uv, p, res, n,
+        history)``."""
         if inner not in ("cycles", "gmres"):
             raise ValueError(inner)
         _check_defect(defect)
-        n_lev = len(self.levels)
+        mode = self._mode(eager)
+        n = self.mesh.size
         top64 = self.data[-1]
         ops = self._operands(torch.float32)
         f32 = torch.float32
+        cycle = self._cycle32(mode)
+
+        def defect_fn(*b):
+            # (*f_mom, *f_cont, *uv, *p) -> (*r_mom32, *r_cont32, ||r||)
+            rm, rc = _saddle_residual(top64, b[:n], b[n:2 * n], b[2 * n:3 * n], b[3 * n:])
+            return (*_cast(rm, f32), *_cast(rc, f32), _pnorm_pair(rm, rc))
+
+        residual = self._graph(defect_fn, mode, "defect")
 
         def inner_cycles(rm32, rc32):
-            ep = (_zeros_like(rm32), _zeros_like(rc32))
+            e = (*_zeros_like(rm32), *_zeros_like(rc32))
             for _ in range(n_inner):
-                ep = self._v_cycle(n_lev - 1, ops, rm32, rc32, *ep)
-            return ep
+                e = cycle(*rm32, *rc32, *e)
+            return list(e[:n]), list(e[n:])
 
         def inner_gmres(rm32, rc32):
             top = ops[0][-1]
@@ -522,46 +615,65 @@ class ShardedStokesMultigrid:
 
             def M(x):
                 em, ec = unflat(x)
-                duv, dp = self._v_cycle(n_lev - 1, ops, em, ec, _zeros_like(em),
-                                        _zeros_like(ec))
-                return flat(duv, dp)
+                out = cycle(*em, *ec, *_zeros_like(em), *_zeros_like(ec))
+                return flat(out[:n], out[n:])
+
+            def A(*parts):
+                # _saddle_residual(0, 0, u, p) = -A u
+                uv, p = unflat(ShardVector(parts))
+                am, ac = _saddle_residual(top, _zeros_like(uv), _zeros_like(p), uv, p)
+                return tuple(flat([-m for m in am], [-c for c in ac]).parts)
+
+            matvec = self._graph(A, mode, "matvec")
 
             def AM(x):
-                uv, p = unflat(M(x))
-                # _saddle_residual(0, 0, u, p) = -A u
-                am, ac = _saddle_residual(top, _zeros_like(uv), _zeros_like(p), uv, p)
-                return flat([-m for m in am], [-c for c in ac])
+                return ShardVector(list(matvec(*M(x).parts)))
 
-            return unflat(gmres_correction(AM, M, flat(rm32, rc32), n_inner,
-                                           dot=_dot, norm=_norm))
+            return unflat(gmres_correction(AM, M, flat(rm32, rc32), n_inner, stages=stages))
 
-        inner_solve = inner_gmres if inner == "gmres" else inner_cycles
+        if inner == "gmres":
+            stages = gmres_stages(n_inner, dot=_dot, norm=_norm)
+            if mode == "graphed":
+                def graph(fn):
+                    return self._graph(fn, mode, None, "refine.capture")
+                start, arnoldi, finish = stages
+                stages = (_over_parts(start, graph), [_over_parts(a, graph) for a in arnoldi],
+                          _over_parts(finish, graph))
+            inner_solve = inner_gmres
+        else:
+            inner_solve = inner_cycles
 
         def solve(f_mom, f_cont, uv, p):
             dt = f_mom[0].dtype
-            rm, rc = _saddle_residual(top64, f_mom, f_cont, uv, p)
-            res0 = float(_pnorm_pair(rm, rc))
+
+            def defect_of(uv, p):
+                out = residual(*f_mom, *f_cont, *uv, *p)
+                return list(out[:n]), list(out[n:2 * n]), out[-1]
+
+            rm, rc, res0 = defect_of(uv, p)          # res0 stays on the device
             if self.full_multigrid:
-                duv, dp = self._fmg(ops, _cast(rm, f32), _cast(rc, f32))
-                uv, p = _add(uv, _cast(duv, dt)), _add(p, _cast(dp, dt))
-                rm, rc = _saddle_residual(top64, f_mom, f_cont, uv, p)
-            res, hist, n = 1.0, [], 0
-            while n < max_outer and res >= tol and np.isfinite(res):
+                with trace.span("solve.fmg"):
+                    duv, dp = self._fmg(ops, rm, rc, finest_cycle=cycle)
+                    uv, p = _add(uv, _cast(duv, dt)), _add(p, _cast(dp, dt))
+                rm, rc, _ = defect_of(uv, p)
+            res, hist, k = 1.0, [], 0
+            while k < max_outer and res >= tol and math.isfinite(res):
                 hist.append(res)
-                duv, dp = inner_solve(_cast(rm, f32), _cast(rc, f32))
+                duv, dp = inner_solve(rm, rc)
                 uv, p = _add(uv, _cast(duv, dt)), _add(p, _cast(dp, dt))
-                rm, rc = _saddle_residual(top64, f_mom, f_cont, uv, p)
-                res = float(_pnorm_pair(rm, rc)) / res0
-                n += 1
-            return uv, p, res, n, hist + [res]
+                rm, rc, norm = defect_of(uv, p)
+                with trace.span("refine.wait"):
+                    res = float(norm / res0)
+                k += 1
+            return uv, p, res, k, hist + [res]
 
         return solve
 
     def solve_refined(self, rhs_global, u0_global=None, tol=1e-10, n_inner=6,
-                      max_outer=20, defect="auto", inner="cycles"):
+                      max_outer=20, defect="auto", inner="cycles", eager=False):
         """Float64-accuracy sharded Stokes solve; returns (u, res, n_outer)."""
         fn = self.build_refined(tol=tol, n_inner=n_inner, max_outer=max_outer,
-                                defect=defect, inner=inner)
+                                defect=defect, inner=inner, eager=eager)
         f_mom, f_cont = self._split_fields(rhs_global.to(torch.float64))
         if u0_global is None:
             uv0, p0 = _zeros_like(f_mom), _zeros_like(f_cont)

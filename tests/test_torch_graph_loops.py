@@ -428,7 +428,7 @@ class _Replay:
 
 def _fake_record(warm, record):
     warm()
-    return _Replay(record), {}, (0.25, 0.5, 0.125)
+    return _Replay(record), {}, {}, (0.25, 0.5, 0.125)
 
 
 @pytest.fixture
